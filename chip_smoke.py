@@ -1,0 +1,320 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port starts on the GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and nvcc; exits nonzero without them. Phases, one JSON
+line each:
+
+1. device    — card name, device count, nvidia-smi name and power limit;
+2. build     — nvcc builds every ``pql_tpu_torch/csrc/*.cu`` for sm_90a;
+3. kernel_check — each kernel against its plain PyTorch version on the
+   card (tolerance 1e-5), and its time, the plain version's time and the
+   bound, by CUDA events;
+4. reference — two PQL-D iterations at a small size on the card and on
+   the CPU from the same state with the same draws;
+5. main_path — ``algo=pql_d task=Cartpole num_envs=4096`` at full width
+   (batch 8192, memory 5e6, hidden [512, 256, 128], 51 atoms): warm-up and
+   training iterations on the card, with the kernels' launch counts; the
+   same run with ``algo.use_pallas=false`` (plain projection) is timed in
+   alternating blocks beside it.
+
+Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``. Any failed check raises, so the script
+exits nonzero and prints no result. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+MAIN_WARM_ITERS = 5  # untimed iterations of each route first
+MAIN_BLOCKS = 16  # timed blocks, alternating kernel and plain routes
+MAIN_BLOCK_ITERS = 10  # iterations per timed block
+PROFILED_ITERS = 5  # iterations under torch.profiler after the timed ones
+TOL = 1e-5  # kernel vs plain version, fp32 (ulp-level: support by i*dz+v_min vs linspace, FMA)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, reps: int = 5) -> float:
+    """Mean device time of one ``fn()``: ``iters`` calls captured in one CUDA
+    graph and replayed ``reps`` times between CUDA events, so the host's
+    launch overhead (Python, ctypes) does not leave the device idle between
+    calls and enter the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as graph capture requires
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def _self_device_us(row) -> float:
+    # the attribute's name changed across torch versions
+    return float(getattr(row, "self_device_time_total", getattr(row, "self_cuda_time_total", 0.0)))
+
+
+def c51_inputs(B, A, dev, gen):
+    import torch
+
+    p1 = torch.softmax(2.0 * torch.randn(B, A, generator=gen, device=dev), -1)
+    p2 = torch.softmax(2.0 * torch.randn(B, A, generator=gen, device=dev), -1)
+    reward = 3.0 * torch.randn(B, 1, generator=gen, device=dev)
+    done = (torch.rand(B, 1, generator=gen, device=dev) < 0.3).float()
+    return p1, p2, reward, done
+
+
+def check_c51(dev) -> dict:
+    """c51_td_target against its plain version on the card."""
+    import torch
+    from pql_tpu_torch.ops.kernels import c51_td_target, c51_td_target_plain
+
+    A, gamma, v_min, v_max = 51, 0.99 ** 3, -10.0, 10.0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {}
+    for B in (8192, 300):  # the main path's batch, and a ragged last block
+        p1, p2, reward, done = c51_inputs(B, A, dev, gen)
+        for mode, q in (("twin", p2), ("single", None)):
+            got = c51_td_target(p1, q, reward, done, gamma, v_min, v_max)
+            want = c51_td_target_plain(p1, q, reward, done, gamma, v_min, v_max)
+            torch.cuda.synchronize()
+            check(got.shape == (B, A) and bool(torch.isfinite(got).all()), f"c51 {mode} B={B} output")
+            errs[f"{mode}_B{B}"] = float((got - want).abs().max())
+        mass = c51_td_target(p1, None, reward, done, gamma, v_min, v_max).sum(-1)
+        errs[f"mass_B{B}"] = float((mass - 1.0).abs().max())
+    # integer pos: done = 1, r = 0 puts all mass on atom 25 (z = 0)
+    p1, _, _, _ = c51_inputs(64, A, dev, gen)
+    zeros, ones = torch.zeros(64, 1, device=dev), torch.ones(64, 1, device=dev)
+    out = c51_td_target(p1, p1, zeros, ones, gamma, v_min, v_max)
+    onehot = torch.zeros_like(out)
+    onehot[:, 25] = 1.0
+    errs["integer_pos"] = float((out - onehot).abs().max())
+    max_err = max(errs.values())
+    check(max_err <= TOL, f"c51_td_target disagrees with its plain version: {errs}")
+
+    B = 8192
+    p1, p2, reward, done = c51_inputs(B, A, dev, gen)
+    ms = cuda_ms(lambda: c51_td_target(p1, p2, reward, done, gamma, v_min, v_max), 200)
+    plain_ms = cuda_ms(lambda: c51_td_target_plain(p1, p2, reward, done, gamma, v_min, v_max), 20)
+    # least work: read p1, p2, r, d once, write out once; the scatter form of
+    # the projection needs ~13 fp32 operations per (row, source atom) per twin
+    nbytes = 4 * (2 * B * A + 2 * B + B * A)
+    flops = 2 * 13 * B * A + B * A
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOPS
+    return dict(
+        name="c51_td_target", errors=errs, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bytes=nbytes, flops=flops, library_ms=None,
+    )
+
+
+def reference_phase(dev) -> dict:
+    """Two PQL-D iterations at a small size on the card and on the CPU, from
+    the same initial state (drawn on the CPU from the seed) with the same
+    draws. The card's path runs the CUDA kernel, the CPU's its plain version."""
+    import torch
+    from pql_tpu_torch.algos.pql import PQL
+    from pql_tpu_torch.cfg import make_config
+
+    cfg = make_config("pql_d", num_envs=64, algo__batch_size=256, algo__memory_size=64 * 64,
+                      algo__warm_up=8)
+    agents = {d: PQL(cfg, device=d) for d in ("cpu", dev)}
+    states = {d: a.init() for d, a in agents.items()}
+    theta0 = torch.cat([p.detach().flatten() for p in states["cpu"].critic.parameters()])
+    gen = torch.Generator().manual_seed(1)
+    losses = {d: [] for d in agents}
+    for it in range(3):
+        draws = agents["cpu"].draw_iteration(gen, random=(it == 0))
+        for d, agent in agents.items():
+            step = agent.warmup if it == 0 else agent.train_iter
+            states[d], m = step(states[d], {k: v.to(d) for k, v in draws.items()})
+            losses[d].append(float(m["train/critic_loss"]))
+    flat = {d: torch.cat([p.detach().float().cpu().flatten() for p in s.critic.parameters()])
+            for d, s in states.items()}
+    rel_step = float((flat[dev] - flat["cpu"]).norm() / (flat["cpu"] - theta0).norm())
+    loss_err = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(losses[dev], losses["cpu"]))
+    replay_err = float((states[dev].replay.data.cpu() - states["cpu"].replay.data).abs().max())
+    # fp32 on both; sums run in other orders, so parameters drift apart at
+    # the level of rounding: the card's parameter change must match the
+    # CPU's to 1% of its norm, losses to 1e-3 relative
+    check(rel_step <= 1e-2, f"card vs CPU critic step differs by {rel_step:.3g} of its norm")
+    check(loss_err <= 1e-3, f"card vs CPU critic loss differs by {loss_err:.3g} relative")
+    check(replay_err <= 1e-4, f"card vs CPU replay differs by {replay_err:.3g}")
+    return dict(critic_step_rel_err=rel_step, critic_loss_rel_err=loss_err, replay_max_abs_err=replay_err)
+
+
+def main_path(dev, smi: str) -> dict:
+    """The port's main path at full width, through the kernel, with the same
+    run through the plain projection (``algo.use_pallas=false``) timed in
+    alternating blocks beside it: kernel, plain, plain, kernel, ..."""
+    import statistics
+
+    import torch
+    from pql_tpu_torch.algos.pql import PQL
+    from pql_tpu_torch.cfg import parse_cli
+    from pql_tpu_torch.ops import kernels
+
+    argv = ["algo=pql_d", "task=Cartpole", "num_envs=4096"]
+    runs = {}
+    for route, use_pallas in (("kernel", "true"), ("plain", "false")):
+        cfg = parse_cli(argv + [f"algo.use_pallas={use_pallas}"])
+        runs[route] = dict(agent=PQL(cfg, device=dev), losses=[], block_ms=[])
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for r in runs.values():
+        r["state"], _ = r["agent"].warmup(r["agent"].init())
+
+    def run(r, n):
+        for _ in range(n):
+            r["state"], m = r["agent"].train_iter(r["state"])
+            r["losses"].append(torch.stack([m["train/critic_loss"], m["train/actor_loss"]]))
+
+    for r in runs.values():
+        run(r, MAIN_WARM_ITERS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for route in ("kernel", "plain", "plain", "kernel") * (MAIN_BLOCKS // 2):
+        t1 = time.perf_counter()
+        run(runs[route], MAIN_BLOCK_ITERS)
+        torch.cuda.synchronize()
+        runs[route]["block_ms"].append(1e3 * (time.perf_counter() - t1) / MAIN_BLOCK_ITERS)
+    launches = dict(kernels.LAUNCHES)
+
+    iters = MAIN_WARM_ITERS + MAIN_BLOCKS * MAIN_BLOCK_ITERS
+    cfg, state = runs["kernel"]["agent"].cfg, runs["kernel"]["state"]
+    for route, r in runs.items():
+        losses = torch.stack(r["losses"]).cpu()
+        check(bool(torch.isfinite(losses).all()), f"non-finite loss on the main path ({route})")
+        st = r["state"]
+        check(st.critic_update_count == 8 * iters and st.actor_update_count == 4 * iters,
+              f"counters {st.critic_update_count}:{st.actor_update_count} after {iters} iterations ({route})")
+        check(st.replay.total_writes == cfg.algo.warm_up + iters, f"replay writes ({route})")
+        for name in ("return_tracker", "len_tracker"):
+            check(bool(torch.isfinite(getattr(st, name).mean())), f"{name} mean ({route})")
+    check(launches["c51_td_target"] == 8 * iters,
+          f"c51_td_target launched {launches['c51_td_target']} times in {iters} iterations")
+
+    # device time by kernel over a short window (torch.profiler; CUPTI)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        run(runs["kernel"], PROFILED_ITERS)
+        torch.cuda.synchronize()
+        profiled_wall_ms = 1e3 * (time.perf_counter() - t1) / PROFILED_ITERS
+    rows = sorted(prof.key_averages(), key=lambda r: -_self_device_us(r))
+    # device time = kernel events only: an operator's row repeats the time of
+    # the kernels it launched, and a record_function range (the optimizer's
+    # step) appears on the device as a span that includes idle gaps
+    on_device = [r for r in rows if r.device_type == DeviceType.CUDA]
+    kernel_rows = [r for r in on_device if not getattr(r, "is_user_annotation", False)]
+    op_rows = [r for r in rows if r.device_type != DeviceType.CUDA]
+    device_ms = sum(_self_device_us(r) for r in kernel_rows) / 1e3 / PROFILED_ITERS
+
+    def per_iter(rs, n):
+        return [dict(name=r.key[:60], device_ms_per_iter=_self_device_us(r) / 1e3 / PROFILED_ITERS,
+                     calls_per_iter=r.count / PROFILED_ITERS) for r in rs[:n]]
+
+    c51_rows = [r for r in kernel_rows if "c51_td_target_kernel" in r.key]
+    c51_us = sum(_self_device_us(r) for r in c51_rows) / max(sum(r.count for r in c51_rows), 1)
+    ms = {route: statistics.median(r["block_ms"]) for route, r in runs.items()}
+    return dict(
+        config=" ".join(argv) + " (batch 8192, memory 5e6, hidden [512,256,128], 51 atoms, fp32)",
+        card=smi, iterations=iters, setup_s=setup_s,
+        ms_per_iter=ms["kernel"], env_steps_per_s=1e3 * cfg.num_envs / ms["kernel"],
+        block_ms_per_iter={route: r["block_ms"] for route, r in runs.items()},
+        block_ms_quartiles={route: statistics.quantiles(r["block_ms"], n=4) for route, r in runs.items()},
+        plain_route_ms_per_iter=ms["plain"], plain_route_env_steps_per_s=1e3 * cfg.num_envs / ms["plain"],
+        critic_loss_last=float(runs["kernel"]["losses"][-1][0]),
+        actor_loss_last=float(runs["kernel"]["losses"][-1][1]),
+        critic_updates=state.critic_update_count, actor_updates=state.actor_update_count,
+        launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        profiled_wall_ms_per_iter=profiled_wall_ms, profiled_device_ms_per_iter=device_ms,
+        profiled_device_busy_share=device_ms / profiled_wall_ms,
+        c51_kernel_device_us_in_profile=c51_us,
+        top_kernels=per_iter(kernel_rows, 10),
+        top_ops_by_attributed_device_time=per_iter(op_rows, 8),
+    )
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke test runs only on the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pql_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = "cuda:0"
+    smi = nvidia_smi_line()
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    emit(dict(phase="device", kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
+              cuda=torch.version.cuda))
+
+    t0 = time.perf_counter()
+    built = kernels.build_kernels()
+    emit(dict(phase="build", seconds=time.perf_counter() - t0, sources=built))
+
+    checks = [check_c51(dev)]
+    emit(dict(phase="kernel_check", card=smi, kernels=checks))
+    emit(dict(phase="reference", **reference_phase(dev)))
+    main = main_path(dev, smi)
+    emit(dict(phase="main_path", **main))
+
+    emit({"kernels": [
+        dict(name=c["name"], route="cuda", source=kernels.KERNELS[c["name"]]["source"],
+             replaces=kernels.KERNELS[c["name"]]["replaces"], launches=main["launches"][c["name"]],
+             max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+             bound_by=c["bound_by"], library_ms=c["library_ms"])
+        for c in checks
+    ]})
+    check("jax" not in sys.modules and "pql_tpu" not in sys.modules, "JAX or pql_tpu was imported")
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,335 @@
+"""PQL and PQL-D on one GPU (port of pql_tpu/algos/pql.py:365-620).
+
+One iteration, exactly as the JAX package's fused step orders it:
+
+- sim phase, ``horizon`` steps: update the obs-rms, then normalize; actor
+  action plus mixed exploration noise (uniform actions in warm-up);
+  ``VecEnv.step`` with auto-reset; episode accounting into the trackers;
+- n-step staging, then one ring-replay write; ``env_steps`` counts steps
+  per env;
+- critic phase, ``critic_sample_ratio × horizon`` updates: sample a batch;
+  target from the live actor (as it stood before this iteration's actor
+  phase) plus smoothing noise, evaluated on ``critic_target`` as it stood
+  when the phase began (the JAX package's semantics); for PQL-D
+  the C51 projection with γ^nstep as min(proj(p1_t), proj(p2_t)) under
+  no_grad, through the hand-written CUDA kernel ``c51_td_target`` when
+  ``algo.use_pallas`` is set (its plain version on CPU tensors) and the
+  dense plain path otherwise; BCE of both heads; clip, AdamW, polyak;
+- actor phase, ``max(n_critic // critic_actor_ratio, 1) × horizon``
+  updates of -mean(q_min) against the post-critic-phase critic, whose
+  parameters receive no gradient.
+
+Warm-up is one call of ``warm_up`` steps with uniform actions and no
+updates. ``iters_per_call`` is a Python loop.
+
+Every random number of one call comes from ``draw_iteration``; ``warmup``
+and ``train_iter`` take such a dict (the parity tests hand in the JAX
+package's draws) or draw from the state's own ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from pql_tpu_torch.algos import base
+from pql_tpu_torch.envs import make_env
+from pql_tpu_torch.envs.base import VecEnvState, handle_timeout
+from pql_tpu_torch.ops.distributional import binary_cross_entropy
+from pql_tpu_torch.ops.kernels import c51_td_target, c51_td_target_plain
+from pql_tpu_torch.ops.noise import add_mixed_normal_noise, add_normal_noise
+from pql_tpu_torch.ops.running_norm import RunningMeanStd
+from pql_tpu_torch.ops.schedules import schedule_value
+from pql_tpu_torch.ops.soft_update import soft_update
+from pql_tpu_torch.replay import NStepState, ReplayBuffer, create_nstep, nstep_scan, replay_slots
+from pql_tpu_torch.replay.buffer import draw_sample_indices
+from pql_tpu_torch.utils.trackers import Tracker
+
+
+@dataclass
+class PQLState:
+    actor: nn.Module
+    actor_opt: torch.optim.Optimizer
+    critic: nn.Module
+    critic_opt: torch.optim.Optimizer
+    critic_target: nn.Module
+    obs_rms: RunningMeanStd
+    env_state: VecEnvState
+    obs: torch.Tensor
+    nstep: NStepState
+    replay: ReplayBuffer
+    cur_returns: torch.Tensor  # [E]
+    cur_lengths: torch.Tensor  # [E]
+    return_tracker: Tracker
+    len_tracker: Tracker
+    success_tracker: Tracker
+    gen: torch.Generator
+    env_steps: int  # sim steps per env, warm-up included
+    critic_update_count: int
+    actor_update_count: int
+
+
+def check_supported(cfg) -> None:
+    """Fail on options the port does not implement yet."""
+    unsupported = {
+        "algo.name": (cfg.algo.name, "PQL"),
+        "num_devices": (cfg.num_devices or 1, 1),
+        "algo.adaptive_ratios": (cfg.algo.adaptive_ratios, False),
+        "algo.sample_slots": (cfg.algo.sample_slots, 0),
+        "algo.prefetch_batches": (cfg.algo.prefetch_batches, False),
+    }
+    for key, (value, supported) in unsupported.items():
+        if value != supported:
+            raise NotImplementedError(f"{key}={value!r} is not ported yet (only {supported!r})")
+    if cfg.algo.noise.type not in ("mixed", "fixed"):
+        raise ValueError(f"unknown algo.noise.type {cfg.algo.noise.type!r}")
+
+
+class PQL:
+    """PQL / PQL-D trainer on one device."""
+
+    def __init__(self, cfg, device: str | torch.device = "cuda"):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.env = make_env(cfg)
+        self.num_envs = cfg.num_envs
+        self.obs_dim = self.env.obs_dim
+        self.action_dim = self.env.action_dim
+        self.n_critic = int(cfg.algo.critic_sample_ratio) * cfg.algo.horizon_len
+        self.n_actor = max(int(cfg.algo.critic_sample_ratio) // int(cfg.algo.critic_actor_ratio), 1)
+        self.n_actor *= cfg.algo.horizon_len
+        self.iters_per_call = max(int(cfg.algo.iters_per_call), 1)
+        self._target_copy: nn.Module | None = None
+
+    # ---------------------------------------------------------------- init
+
+    def init(self, seed: int | None = None) -> PQLState:
+        """Fresh state. Params and the first env states are drawn on the CPU
+        from ``seed`` (so they do not depend on the device); the loop's
+        generator lives on the device."""
+        cfg, dev = self.cfg, self.device
+        seed = cfg.seed if seed is None else seed
+        g_init = torch.Generator().manual_seed(seed)
+        actor = base.build_actor(cfg, self.obs_dim, self.action_dim, g_init).to(dev)
+        critic = base.build_critic(cfg, self.obs_dim, self.action_dim, g_init).to(dev)
+        critic_target = copy.deepcopy(critic).requires_grad_(False)
+        env_state, obs = self.env.reset(self.env.task.draw_reset(g_init, self.num_envs).to(dev))
+        slots = replay_slots(cfg.algo.memory_size, cfg.num_envs, cfg.algo.horizon_len)
+        replay_dtype = torch.bfloat16 if cfg.algo.replay_dtype == "bfloat16" else torch.float32
+        zeros = lambda: torch.zeros(cfg.num_envs, dtype=torch.float32, device=dev)  # noqa: E731
+        return PQLState(
+            actor=actor,
+            actor_opt=base.build_optimizer(actor, cfg.algo.actor_lr),
+            critic=critic,
+            critic_opt=base.build_optimizer(critic, cfg.algo.critic_lr),
+            critic_target=critic_target,
+            obs_rms=RunningMeanStd((self.obs_dim,), device=dev),
+            env_state=env_state,
+            obs=obs,
+            nstep=create_nstep(cfg.num_envs, self.obs_dim, self.action_dim, cfg.algo.nstep,
+                               cfg.algo.gamma, device=dev),
+            replay=ReplayBuffer(slots, cfg.num_envs, self.obs_dim, self.action_dim, replay_dtype,
+                                valid_start=cfg.algo.nstep - 1, device=dev),
+            cur_returns=zeros(),
+            cur_lengths=zeros(),
+            return_tracker=Tracker(cfg.algo.tracker_len, dev),
+            len_tracker=Tracker(cfg.algo.tracker_len, dev),
+            success_tracker=Tracker(cfg.algo.tracker_len, dev),
+            gen=torch.Generator(device=dev).manual_seed(seed),
+            env_steps=0,
+            critic_update_count=0,
+            actor_update_count=0,
+        )
+
+    # --------------------------------------------------------------- draws
+
+    def draw_iteration(self, gen: torch.Generator, random: bool = False) -> dict[str, torch.Tensor]:
+        """Every random number of one call: warm-up (``random=True``) or one
+        training iteration. Drawn on ``gen``'s device, returned on the
+        agent's device.
+
+        - ``action_uniform`` [H, E, A] U(-1, 1) (warm-up) or
+          ``explore_normal`` [H, E, A] standard normal;
+        - ``reset`` [H, E, k]: the task's fresh-episode draws;
+        - ``critic_slot`` / ``critic_env`` [n_critic, B]: raw slot draws on
+          [0, 2^30) and env indices; ``target_normal`` [n_critic, B, A];
+        - ``actor_slot`` / ``actor_env`` [n_actor, B].
+        """
+        cfg, E, A = self.cfg, self.num_envs, self.action_dim
+        horizon = cfg.algo.warm_up if random else cfg.algo.horizon_len
+        d = {}
+        if random:
+            d["action_uniform"] = torch.rand(horizon, E, A, generator=gen, device=gen.device) * 2.0 - 1.0
+        else:
+            d["explore_normal"] = torch.randn(horizon, E, A, generator=gen, device=gen.device)
+        d["reset"] = torch.stack([self.env.task.draw_reset(gen, E) for _ in range(horizon)])
+        if not random:
+            B = cfg.algo.batch_size
+            d["critic_slot"], d["critic_env"] = draw_sample_indices(gen, self.n_critic, B, E)
+            d["target_normal"] = torch.randn(self.n_critic, B, A, generator=gen, device=gen.device)
+            d["actor_slot"], d["actor_env"] = draw_sample_indices(gen, self.n_actor, B, E)
+        return {k: v.to(self.device) for k, v in d.items()}
+
+    # ----------------------------------------------------------- public API
+
+    def warmup(self, state: PQLState, draws: dict | None = None):
+        """``warm_up`` steps of uniform actions, no updates."""
+        draws = self.draw_iteration(state.gen, random=True) if draws is None else draws
+        return self._step(state, draws, random=True)
+
+    def train_iter(self, state: PQLState, draws: dict | None = None):
+        """One iteration: sim phase, replay write, critic phase, actor phase."""
+        draws = self.draw_iteration(state.gen) if draws is None else draws
+        return self._step(state, draws, random=False)
+
+    def train_block(self, state: PQLState):
+        """``iters_per_call`` iterations; losses averaged over them."""
+        losses = []
+        for _ in range(self.iters_per_call):
+            state, metrics = self.train_iter(state)
+            losses.append((metrics["train/critic_loss"], metrics["train/actor_loss"]))
+        metrics["train/critic_loss"] = torch.stack([c for c, _ in losses]).mean()
+        metrics["train/actor_loss"] = torch.stack([a for _, a in losses]).mean()
+        return state, metrics
+
+    # ------------------------------------------------------------ one call
+
+    def _step(self, state: PQLState, draws: dict, random: bool):
+        cfg = self.cfg
+        horizon = cfg.algo.warm_up if random else cfg.algo.horizon_len
+        traj = self._sim_phase(state, draws, horizon, random)
+        state.nstep, emitted, _valid = nstep_scan(state.nstep, traj)
+        state.replay.add(emitted)
+        state.env_steps += horizon
+
+        zero = torch.zeros((), device=self.device)
+        critic_loss = actor_loss = zero
+        if not random:
+            critic_loss = self._critic_phase(state, draws)
+            actor_loss = self._actor_phase(state, draws)
+        metrics = {
+            "train/critic_loss": critic_loss,
+            "train/actor_loss": actor_loss,
+            "train/return": state.return_tracker.mean(),
+            "train/episode_length": state.len_tracker.mean(),
+            "train/success_rate": state.success_tracker.mean(),
+        }
+        return state, metrics
+
+    @torch.no_grad()
+    def _sim_phase(self, state: PQLState, draws: dict, horizon: int, random: bool):
+        cfg = self.cfg
+        noise = cfg.algo.noise
+        std_hi = schedule_value(noise, state.env_steps // cfg.algo.horizon_len)
+        traj = {k: [] for k in ("obs", "action", "reward", "next_obs", "done")}
+        obs = state.obs
+        for t in range(horizon):
+            if cfg.algo.obs_norm:
+                state.obs_rms.update(obs)
+                obs_n = state.obs_rms.normalize(obs)
+            else:
+                obs_n = obs
+            if random:
+                action = draws["action_uniform"][t]
+            elif noise.type == "mixed":
+                action = add_mixed_normal_noise(
+                    state.actor(obs_n), draws["explore_normal"][t], noise.std_min, std_hi,
+                    out_bounds=(-1.0, 1.0), num_envs_global=self.num_envs, global_start=0,
+                )
+            else:
+                action = add_normal_noise(
+                    state.actor(obs_n), draws["explore_normal"][t], std_hi, out_bounds=(-1.0, 1.0)
+                )
+            state.env_state, next_obs, reward, done, info = self.env.step(
+                state.env_state, action, draws["reset"][t]
+            )
+
+            # episode accounting (reference pql_actor.update_tracker, :129-147)
+            cur_ret = state.cur_returns + reward
+            cur_len = state.cur_lengths + 1.0
+            done_mask = done > 0.5
+            state.return_tracker.update(cur_ret, done_mask)
+            state.len_tracker.update(cur_len, done_mask)
+            if "success" in info:
+                state.success_tracker.update(info["success"].float(), done_mask)
+            state.cur_returns = torch.where(done_mask, torch.zeros_like(cur_ret), cur_ret)
+            state.cur_lengths = torch.where(done_mask, torch.zeros_like(cur_len), cur_len)
+
+            done_b = handle_timeout(done, info) if cfg.algo.handle_timeout else done
+            traj["obs"].append(obs)
+            traj["action"].append(action)
+            traj["reward"].append((cfg.algo.reward_scale * reward)[:, None])
+            traj["next_obs"].append(next_obs)
+            traj["done"].append(done_b[:, None])
+            obs = next_obs
+        state.obs = obs
+        return traj
+
+    def _normalize_clip(self, state: PQLState, x: torch.Tensor) -> torch.Tensor:
+        return state.obs_rms.normalize_clip(x) if self.cfg.algo.obs_norm else x
+
+    def _critic_phase(self, state: PQLState, draws: dict) -> torch.Tensor:
+        cfg = self.cfg
+        gamma_n = cfg.algo.gamma ** cfg.algo.nstep
+        params = list(state.critic.parameters())
+        project = c51_td_target if cfg.algo.use_pallas else c51_td_target_plain
+        # As in the JAX package (pql.py:468-481, which reads state.critic_target
+        # from before its update scan), every target of this phase comes from
+        # the target net as it stood when the phase began; polyak steps go to
+        # state.critic_target and are seen from the next iteration on.
+        target_net = self._frozen_target(state)
+        losses = []
+        for u in range(self.n_critic):
+            batch = state.replay.sample(draws["critic_slot"][u], draws["critic_env"][u])
+            obs_n = self._normalize_clip(state, batch["obs"])
+            next_obs_n = self._normalize_clip(state, batch["next_obs"])
+            reward, done = batch["reward"].contiguous(), batch["done"].contiguous()
+            with torch.no_grad():
+                next_actions = base.target_policy_actions(
+                    cfg, state.actor, next_obs_n, draws["target_normal"][u]
+                )
+                if cfg.algo.distl:
+                    p1_t, p2_t = target_net(next_obs_n, next_actions)
+                    target = project(p1_t, p2_t, reward, done, gamma_n, cfg.algo.v_min, cfg.algo.v_max)
+                else:
+                    q_next = target_net.q_min(next_obs_n, next_actions)
+                    target = reward + (1.0 - done) * gamma_n * q_next
+            out1, out2 = state.critic(obs_n, batch["action"])
+            if cfg.algo.distl:
+                loss = binary_cross_entropy(out1, target) + binary_cross_entropy(out2, target)
+            else:
+                loss = torch.mean(torch.square(out1 - target)) + torch.mean(torch.square(out2 - target))
+            grads = torch.autograd.grad(loss, params)
+            base.optimizer_step(state.critic_opt, params, grads, cfg.algo.max_grad_norm)
+            soft_update(state.critic_target, state.critic, cfg.algo.tau)
+            losses.append(loss.detach())
+        state.critic_update_count += self.n_critic
+        return torch.stack(losses).mean()
+
+    @torch.no_grad()
+    def _frozen_target(self, state: PQLState) -> nn.Module:
+        """A copy of state.critic_target, refreshed in place each phase."""
+        if self._target_copy is None:
+            self._target_copy = copy.deepcopy(state.critic_target)
+        else:
+            torch._foreach_copy_(list(self._target_copy.parameters()), list(state.critic_target.parameters()))
+        return self._target_copy
+
+    def _actor_phase(self, state: PQLState, draws: dict) -> torch.Tensor:
+        cfg = self.cfg
+        params = list(state.actor.parameters())
+        losses = []
+        for u in range(self.n_actor):
+            batch = state.replay.sample(draws["actor_slot"][u], draws["actor_env"][u], fields=("obs",))
+            obs_n = self._normalize_clip(state, batch["obs"])
+            # grads w.r.t. the actor only: the critic's parameters get none
+            loss = -torch.mean(state.critic.q_min(obs_n, state.actor(obs_n)))
+            grads = torch.autograd.grad(loss, params)
+            base.optimizer_step(state.actor_opt, params, grads, cfg.algo.max_grad_norm)
+            losses.append(loss.detach())
+        state.actor_update_count += self.n_actor
+        return torch.stack(losses).mean()

@@ -1,0 +1,102 @@
+"""Batched auto-resetting environment (port of pql_tpu/envs/base.py).
+
+The JAX package writes single-env dynamics and vmaps them; here a Task
+works on an explicit leading ``[E]`` batch dimension. The step contract is
+the same:
+
+- auto-reset: a done env returns its new episode's first observation,
+- ``info['truncated']`` marks time-limit endings (consumed by
+  ``handle_timeout``),
+- obs and reward pass through ``nan_to_num``.
+
+Randomness never comes from a global RNG: the fresh episode states used by
+auto-reset are drawn by the caller (``Task.draw_reset``) and handed to
+``step``, which is the seam the parity tests inject JAX's draws through.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Protocol
+
+import torch
+
+
+class Task(Protocol):
+    """Batched dynamics over a leading env dimension."""
+
+    obs_dim: int
+    action_dim: int
+    max_episode_length: int
+
+    def draw_reset(self, gen: torch.Generator, num_envs: int) -> torch.Tensor:
+        """Random numbers that ``init_state`` turns into fresh episodes."""
+
+    def init_state(self, draw: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Fresh episode states from a ``draw_reset`` draw."""
+
+    def get_obs(self, state: dict[str, torch.Tensor]) -> torch.Tensor:
+        """[E, obs_dim] observations."""
+
+    def dynamics(self, state: dict[str, torch.Tensor], action: torch.Tensor):
+        """One step: (next_state, reward [E], terminated [E] bool, info)."""
+
+
+@dataclass
+class VecEnvState:
+    state: dict[str, torch.Tensor]  # every leaf [E, ...]
+    time: torch.Tensor  # [E] int32 — steps since episode start
+
+
+class VecEnv:
+    """Batched auto-resetting environment over a Task."""
+
+    def __init__(self, task: Task, num_envs: int):
+        self.task = task
+        self.num_envs = num_envs
+        self.obs_dim = task.obs_dim
+        self.action_dim = task.action_dim
+        self.max_episode_length = task.max_episode_length
+
+    def reset(self, draw: torch.Tensor):
+        state = self.task.init_state(draw)
+        time = torch.zeros(self.num_envs, dtype=torch.int32, device=draw.device)
+        return VecEnvState(state=state, time=time), self.task.get_obs(state)
+
+    def step(self, s: VecEnvState, actions: torch.Tensor, reset_draw: torch.Tensor):
+        """Lockstep step with auto-reset; ``reset_draw`` holds every env's
+        would-be fresh state (only done envs use theirs).
+
+        Returns (state, obs, reward, done, info) with done = terminated or
+        truncated, as float32.
+        """
+        next_state, reward, terminated, info = self.task.dynamics(s.state, actions)
+        time = s.time + 1
+        truncated = (time >= self.max_episode_length) & ~terminated
+        done = terminated | truncated
+
+        fresh = self.task.init_state(reset_draw)
+        next_state = {
+            k: torch.where(done.view((-1,) + (1,) * (v.dim() - 1)), fresh[k], v)
+            for k, v in next_state.items()
+        }
+        time = torch.where(done, torch.zeros_like(time), time)
+        obs = self.task.get_obs(next_state)
+
+        info = dict(info)
+        info["truncated"] = truncated
+        return (
+            VecEnvState(state=next_state, time=time),
+            torch.nan_to_num(obs),
+            torch.nan_to_num(reward.float()),
+            done.float(),
+            info,
+        )
+
+
+def handle_timeout(done: torch.Tensor, info: dict) -> torch.Tensor:
+    """Bootstrap through timeouts: clear done where truncated."""
+    truncated = info.get("truncated")
+    if truncated is None:
+        return done
+    return done * (1.0 - truncated.to(done.dtype))

@@ -1,0 +1,24 @@
+"""Noise-decay schedules (port of pql_tpu/ops/schedules.py).
+
+Evaluated on the host at the iteration index, which the port keeps as a
+Python integer; float32 arithmetic as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def schedule_value(noise_cfg, step: int) -> float:
+    """Current exploration std (reference pql_actor.py:59-69): std_max
+    without decay, else the linear or exponential schedule toward std_min."""
+    f32 = np.float32
+    if noise_cfg.decay == "linear":
+        frac = np.clip(f32(step) / f32(noise_cfg.lin_decay_iters), f32(0.0), f32(1.0))
+        start, end = f32(noise_cfg.std_max), f32(noise_cfg.std_min)
+        return float(start + (end - start) * frac)
+    if noise_cfg.decay == "exp":
+        val = f32(noise_cfg.std_max) * np.power(f32(noise_cfg.exp_decay_rate), f32(step))
+        end = f32(noise_cfg.std_min)
+        return float(max(val, end) if noise_cfg.std_min <= noise_cfg.std_max else min(val, end))
+    return float(np.float32(noise_cfg.std_max))
