@@ -22,11 +22,19 @@ Kernels:
 ``categorical_projection_pallas``; the twin ``categorical_td_target_pallas``
 calls it twice and takes the min). It computes the C51 projection of both
 twin target distributions and their min in one pass. On an H100 it is
-bound by bytes: the inputs and output are ~5.1 MB at B=8192, A=51 (~1.5 us
-at 3.35 TB/s), and the scatter form needs O(A) operations per row. The
-design reads each input once and writes each output once, shares pos
-between the twins, and never builds the [B, A, A] hat tensor the plain
-version builds; one warp per row, no atomics (see the source's note).
+bound by bytes: the inputs and output are 5.08 MB at B=8192, A=51 (1.52 us
+at 3.35 TB/s). The design does O(A) work per row in the scatter form: pos is
+monotone in the source atom, so each destination's sources form one run of a
+walk over the row; each lane sums the runs of 7 consecutive sources in
+registers, one segmented warp scan joins the runs that cross lanes, and the
+last source of a run writes it (no atomics, bitwise deterministic). Each warp
+owns whole rows (4 at A=51, every lane busy), stages their contiguous span
+with 16-byte ``cp.async`` copies and writes its output span with 16-byte
+stores (see the source's note). A block of 4 warps needs
+``c51_td_target_smem_bytes(A)`` of shared memory: 23,168 B at A=51, at most
+57,664 B for A <= 512. The launcher raises the kernel's dynamic limit above
+48 KB itself. The wrapper refuses A whose block would exceed the 232,448 B
+a block may use on sm_90.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ KERNELS = {
         replaces="pql_tpu/ops/pallas.py:28",
     ),
 }
+MAX_SMEM_BYTES = 232448  # shared memory one block may use on sm_90
 # launches of each kernel since the last reset (plain-version calls do not count)
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -167,8 +176,8 @@ def c51_td_target(
             raise ValueError(f"c51_td_target: {name} must be contiguous")
     lib = _c51_lib()
     smem = lib.c51_td_target_smem_bytes(a)
-    if smem > 48 * 1024:
-        raise ValueError(f"c51_td_target: {a} atoms need {smem} B of shared memory per block (max 49152)")
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"c51_td_target: {a} atoms need {smem} B of shared memory per block (max {MAX_SMEM_BYTES})")
     out = torch.empty_like(p1)
     with torch.cuda.device(p1.device):
         stream = torch.cuda.current_stream(p1.device).cuda_stream

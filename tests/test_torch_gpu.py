@@ -10,13 +10,16 @@ installed. On the machine with the card:
 
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
+from chip_smoke import C51_CASES, c51_case, c51_logit_scale
 from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import make_config
 from pql_tpu_torch.ops import kernels
 from pql_tpu_torch.ops.kernels import c51_td_target, c51_td_target_plain
 
-ATOL = 1e-5  # kernel vs plain version, fp32: i·Δz + v_min vs linspace support, FMA contraction
+ATOL = 1e-5  # kernel vs plain version, fp32: i·Δz + v_min vs linspace support, FMA (chip_smoke.c51_logit_scale)
 
 
 @pytest.fixture
@@ -50,6 +53,87 @@ def test_c51_kernel_matches_plain(cuda, B):
     assert kernels.LAUNCHES["c51_td_target"] == n0 + 2
     mass = c51_td_target(p1, None, rew, done, 0.99, -10.0, 10.0).sum(-1)
     assert float((mass - 1.0).abs().max()) <= ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", C51_CASES)
+@pytest.mark.parametrize("A", [2, 21, 51, 101])
+@pytest.mark.parametrize("B", [1, 300, 8192])
+def test_c51_kernel_edge_cases(cuda, B, A, case):
+    """Clipped rows at both ends, done rows (all sources share one pos),
+    fractional done, integer pos at atoms 0, A//2 and A-1, gamma = 1; twin
+    and single modes (cases: chip_smoke.c51_case)."""
+    gen = torch.Generator(device=cuda).manual_seed(B * 1000 + A)
+    p1, p2, rew, done, gamma = c51_case(case, B, A, cuda, gen)
+    n0 = kernels.LAUNCHES["c51_td_target"]
+    for q in (p2, None):
+        got = c51_td_target(p1, q, rew, done, gamma, -10.0, 10.0)
+        want = c51_td_target_plain(p1, q, rew, done, gamma, -10.0, 10.0)
+        torch.cuda.synchronize()
+        assert got.shape == (B, A)
+        assert float((got - want).abs().max()) <= ATOL
+    assert kernels.LAUNCHES["c51_td_target"] == n0 + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "done", "clip_low", "clip_high"])
+def test_c51_kernel_long_rows_carry_runs_across_passes(cuda, case):
+    """A = 512: a row is 74 lane chunks, so a warp walks it in three passes
+    and runs carry from one pass to the next (a done row is one run of 512
+    sources); a block needs 57,664 B of shared memory, above the 48 KB a
+    launch gets without asking. At pos near 511 an fp32 ulp is 3e-5, more
+    than the tolerance, so the support is 0..511 (dz = 1), gamma 0.5 and the
+    rewards on a 0.5 grid: every pos is exact on both sides, and the kernel
+    and its plain version differ only in the order of their sums."""
+    A, B = 512, 300
+    assert kernels._c51_lib().c51_td_target_smem_bytes(A) > 48 * 1024
+    gen = torch.Generator(device=cuda).manual_seed(A)
+    p1 = torch.softmax(torch.randn(B, A, generator=gen, device=cuda), -1)
+    p2 = torch.softmax(torch.randn(B, A, generator=gen, device=cuda), -1)
+    rew = 0.5 * torch.randint(-200, 1200, (B, 1), generator=gen, device=cuda).float()
+    done = (torch.rand(B, 1, generator=gen, device=cuda) < 0.3).float()
+    if case == "done":
+        done = torch.ones_like(done)
+    elif case == "clip_low":
+        rew = torch.full_like(rew, -600.0)
+    elif case == "clip_high":
+        rew = torch.full_like(rew, 600.0)
+    for q in (p2, None):
+        got = c51_td_target(p1, q, rew, done, 0.5, 0.0, A - 1.0)
+        want = c51_td_target_plain(p1, q, rew, done, 0.5, 0.0, A - 1.0)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["twin", "single"])
+def test_c51_kernel_is_bitwise_deterministic(cuda, mode):
+    p1, p2, rew, done = _inputs(8192, 51, cuda, 7)
+    q = p2 if mode == "twin" else None
+    first = c51_td_target(p1, q, rew, done, 0.99 ** 3, -10.0, 10.0)
+    again = c51_td_target(p1, q, rew, done, 0.99 ** 3, -10.0, 10.0)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.gpu
+@settings(max_examples=60, deadline=None, suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(
+    B=st.integers(1, 3000), A=st.integers(2, 101), seed=st.integers(0, 2**31 - 1),
+    reward_scale=st.floats(0.0, 30.0), done_p=st.floats(0.0, 1.0), frac_done=st.booleans(),
+    gamma=st.floats(0.0, 1.0), twin=st.booleans(),
+)
+def test_c51_kernel_random_sweep(cuda, B, A, seed, reward_scale, done_p, frac_done, gamma, twin):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    s = c51_logit_scale(A)
+    p1 = torch.softmax(s * torch.randn(B, A, generator=gen, device=cuda), -1)
+    p2 = torch.softmax(s * torch.randn(B, A, generator=gen, device=cuda), -1) if twin else None
+    rew = reward_scale * torch.randn(B, 1, generator=gen, device=cuda)
+    done = torch.rand(B, 1, generator=gen, device=cuda)
+    done = done if frac_done else (done < done_p).float()
+    got = c51_td_target(p1, p2, rew, done, gamma, -10.0, 10.0)
+    want = c51_td_target_plain(p1, p2, rew, done, gamma, -10.0, 10.0)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATOL
 
 
 @pytest.mark.gpu
