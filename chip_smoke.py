@@ -21,7 +21,18 @@ line each:
    (batch 8192, memory 5e6, hidden [512, 256, 128], 51 atoms): warm-up and
    training iterations on the card, with the kernels' launch counts; the
    same run with ``algo.use_pallas=false`` (plain projection) is timed in
-   alternating blocks beside it.
+   alternating blocks beside it;
+6. physics_check — Ant, Humanoid and Anymal at 4096 envs: a rollout of
+   ``PHYS_ROLL`` auto-resetting steps on the card from seeded draws under
+   uniform actions, then one control step three ways from its last state: the
+   captured CUDA graph, eager on the card (bitwise equal to the graph) and
+   eager on the CPU (within ``STEP_TOL``); the graph's kernel ms, its replay
+   period and host launch ms, the eager step's wall ms and the kernel
+   launches of one control step;
+7. ant_main_path — ``algo=pql task=Ant num_envs=4096`` at full width
+   (batch 8192, memory 5e6, fp32, reward scale 0.01): warm-up and at least
+   20 iterations, with ms/iter, env-steps/s and, from a short profiled
+   window, device ms/iter split into the sim graph and the rest.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -37,13 +48,33 @@ import sys
 import time
 
 MAIN_WARM_ITERS = 5  # untimed iterations of each route first
-MAIN_BLOCKS = 16  # timed blocks, alternating kernel and plain routes
+MAIN_BLOCKS = 8  # timed blocks, alternating kernel and plain routes
 MAIN_BLOCK_ITERS = 10  # iterations per timed block
 PROFILED_ITERS = 5  # iterations under torch.profiler after the timed ones
 TOL = 1e-5  # kernel vs plain version, fp32 (ulp-level: support by i*dz+v_min vs linspace, FMA)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 COLD_SETS = 32  # input sets rotated for cold times: 32 x 5.08 MB = 163 MB, over 3x the 50 MB L2
+RIGID_TASKS = ("Ant", "Humanoid", "Anymal")
+PHYS_ENVS = 4096
+PHYS_ROLL = 50  # control steps before the compared one
+PHYS_REPS = 20  # graph replays per timing
+PHYS_TIMINGS = 5  # timings per task
+# Card against CPU, one control step (eager, fp32): the tolerances of the
+# CPU parity tests against the JAX package (tests/test_torch_physics.py,
+# tests/test_torch_rigid.py): rtol 1e-4 with atol 1e-5 on positions,
+# anchors and the reward, 1e-4 on velocities; terminated exact. The card
+# rounds differently (FMA contraction inside ops, its own sin/cos, division
+# by a scalar as a reciprocal product), so an env whose contact or
+# termination test sits within rounding of its threshold may take the
+# other branch: at most PHYS_MAX_FLIPS of the 4096 envs may differ beyond
+# the tolerance, and every such env is reported.
+STEP_TOL = {"q": (1e-4, 1e-5), "qd": (1e-4, 1e-4), "contact": (1e-4, 1e-5), "cmd": (0.0, 0.0),
+            "reward": (1e-4, 1e-5)}
+PHYS_MAX_FLIPS = 4
+ANT_WARM_ITERS = 5  # untimed iterations after the warm-up
+ANT_BLOCKS = 4  # timed blocks of ANT_BLOCK_ITERS iterations
+ANT_BLOCK_ITERS = 5
 
 
 def emit(obj) -> None:
@@ -343,6 +374,217 @@ def main_path(dev, smi: str) -> dict:
     )
 
 
+def _kernel_launches(prof) -> int:
+    """Device kernel launches in a profile (kernel rows of key_averages)."""
+    from torch.autograd import DeviceType
+
+    return sum(r.count for r in prof.key_averages()
+               if r.device_type == DeviceType.CUDA and not getattr(r, "is_user_annotation", False))
+
+
+def physics_check(dev) -> dict:
+    """Each rigid task at PHYS_ENVS envs: roll out PHYS_ROLL steps of its
+    VecEnv on the card (control steps through the graph, auto-reset) from
+    seeded draws under uniform actions, then take one control step from the
+    last state three ways — graphed on the card, eager on the card, eager on
+    the CPU — and time the graph and the eager step, and count one step's
+    kernel launches."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pql_tpu_torch.envs import VecEnv, make_task
+
+    E, out = PHYS_ENVS, {}
+    for name in RIGID_TASKS:
+        task = make_task(name)
+        env = VecEnv(task, E)
+        gen = torch.Generator().manual_seed(0)
+        s, _ = env.reset(task.draw_reset(gen, E).to(dev))
+        actions = (torch.rand(PHYS_ROLL + 1, E, task.action_dim, generator=gen) * 2.0 - 1.0).to(dev)
+        resets = torch.stack([task.draw_reset(gen, E) for _ in range(PHYS_ROLL)]).to(dev)
+        t0 = time.perf_counter()
+        for t in range(PHYS_ROLL):  # with auto-reset, so fallen envs restart
+            s, _, _, _, _ = env.step(s, actions[t], resets[t])
+        torch.cuda.synchronize()
+        roll_s = time.perf_counter() - t0
+        state = s.state
+        action = actions[PHYS_ROLL]
+        graphed = task.dynamics(state, action)
+        eager = task.control_step(state, action)
+        cpu = task.control_step({k: v.cpu() for k, v in state.items()}, action.cpu())
+        torch.cuda.synchronize()
+
+        def fields(res):
+            nxt, reward, terminated, _ = res
+            return dict(nxt, reward=reward, terminated=terminated)
+
+        g, e, c = fields(graphed), fields(eager), fields(cpu)
+        for k in g:
+            check(torch.equal(g[k], e[k]), f"{name}: graphed and eager steps differ in {k}")
+        check(bool(torch.isfinite(g["q"]).all()), f"{name}: non-finite q after {PHYS_ROLL} steps")
+        # card against CPU, per env
+        keys = [k for k in STEP_TOL if k in g]
+        err = {k: (g[k].cpu() - c[k]).abs().reshape(E, -1) for k in keys}
+        off_env = g["terminated"].cpu() != c["terminated"]
+        for k in keys:
+            rtol, atol = STEP_TOL[k]
+            off_env |= (err[k] > atol + rtol * c[k].abs().reshape(E, -1)).any(-1)
+        flips = [int(i) for i in off_env.nonzero().flatten()]
+        check(len(flips) <= PHYS_MAX_FLIPS, f"{name}: card and CPU differ beyond tolerance in envs {flips}")
+        max_err = {k: float(err[k][~off_env].max()) for k in keys}
+
+        graph = task._graphs[(E, action.device)]
+        # back-to-back replays between CUDA events: the replay period, which is
+        # the graph's kernel time unless the host's launch of the next replay
+        # (graph_replay_host_ms) leaves the device waiting; PHYS_TIMINGS means
+        # of PHYS_REPS replays show the spread within this call
+        period_ms = []
+        for _ in range(PHYS_TIMINGS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(PHYS_REPS):
+                graph.graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            period_ms.append(start.elapsed_time(end) / PHYS_REPS)
+        submit_ms = []  # host time of one replay call (the graph's launch), the device idle
+        for _ in range(PHYS_TIMINGS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            graph.graph.replay()
+            submit_ms.append(1e3 * (time.perf_counter() - t1))
+        torch.cuda.synchronize()
+        eager_ms = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            task.control_step(state, action)
+            torch.cuda.synchronize()
+            eager_ms.append(1e3 * (time.perf_counter() - t1))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            task.control_step(state, action)
+            torch.cuda.synchronize()
+        launches = _kernel_launches(prof)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            graph.graph.replay()
+            torch.cuda.synchronize()
+        # the graph's device time: its kernels' durations in a profile of one replay
+        graph_kernel_ms = sum(_self_device_us(r) for r in prof.key_averages()
+                              if r.device_type == DeviceType.CUDA) / 1e3
+        out[name] = dict(
+            envs=E, rollout_steps=PHYS_ROLL, rollout_s=roll_s, graphed_equals_eager_bitwise=True,
+            card_vs_cpu_max_abs_err=max_err, card_vs_cpu_envs_beyond_tol=flips, terminated=int(g["terminated"].sum()),
+            engaged_pairs=int((g["contact"][:, 3::4] > 0.5).sum()),
+            graph_kernel_ms=graph_kernel_ms, graph_replay_period_ms=statistics.median(period_ms),
+            graph_replay_period_ms_timings=period_ms, graph_replay_host_ms=statistics.median(submit_ms),
+            eager_wall_ms=statistics.median(eager_ms),
+            launches_per_control_step=launches, graph_replay_kernels_in_profile=_kernel_launches(prof),
+        )
+    return out
+
+
+def ant_main_path(dev, smi: str) -> dict:
+    """``algo=pql task=Ant num_envs=4096`` at full width: warm-up, then
+    ANT_WARM_ITERS + ANT_BLOCKS x ANT_BLOCK_ITERS iterations timed in blocks,
+    then a profiled window, whose kernel time is the device time of whole
+    iterations (the profiler traces the graph's kernels, physics_check
+    shows). CUDA events around every control step of the timed blocks
+    (input copies, graph replay, output clones) give the sim's span on the
+    stream, which also holds any time the device waits for the host to
+    submit the graph."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pql_tpu_torch.algos.pql import PQL
+    from pql_tpu_torch.cfg import parse_cli
+
+    argv = ["algo=pql", "task=Ant", "num_envs=4096"]
+    cfg = parse_cli(argv)
+    agent = PQL(cfg, device=dev)
+    task = agent.env.task
+    sim_events = []
+    graphed = task.dynamics
+
+    def timed_dynamics(state, action):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = graphed(state, action)
+        end.record()
+        sim_events.append((start, end))
+        return res
+
+    task.dynamics = timed_dynamics
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = agent.init()
+    # ring: memory 5e6 // 4096 envs = 1220 slots of 34 + 8 + 1 + 34 + 1 = 78 fp32 columns
+    ring = (int(cfg.algo.memory_size) // cfg.num_envs, cfg.num_envs, 78)
+    check(tuple(state.replay.data.shape) == ring, f"Ant replay ring {tuple(state.replay.data.shape)}, want {ring}")
+    state, _ = agent.warmup(state)
+    losses, block_ms = [], []
+
+    def run(n):
+        nonlocal state
+        for _ in range(n):
+            state, m = agent.train_iter(state)
+            losses.append(torch.stack([m["train/critic_loss"], m["train/actor_loss"]]))
+
+    run(ANT_WARM_ITERS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps_before = len(sim_events)
+    for _ in range(ANT_BLOCKS):
+        t1 = time.perf_counter()
+        run(ANT_BLOCK_ITERS)
+        torch.cuda.synchronize()
+        block_ms.append(1e3 * (time.perf_counter() - t1) / ANT_BLOCK_ITERS)
+    iters = ANT_WARM_ITERS + ANT_BLOCKS * ANT_BLOCK_ITERS
+    lo = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(lo).all()), "non-finite loss on the Ant main path")
+    check(state.critic_update_count == 8 * iters and state.actor_update_count == 4 * iters,
+          f"Ant counters {state.critic_update_count}:{state.actor_update_count} after {iters} iterations")
+    check(state.replay.total_writes == cfg.algo.warm_up + iters, "Ant replay writes")
+    for name in ("return_tracker", "len_tracker"):
+        check(bool(torch.isfinite(getattr(state, name).mean())), f"Ant {name} mean")
+    check(len(sim_events) == cfg.algo.warm_up + iters, f"{len(sim_events)} control steps")
+    timed = sim_events[steps_before:]
+    sim_span_ms = sum(s.elapsed_time(e) for s, e in timed) / len(timed)  # one control step per iteration
+    task.dynamics = graphed
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        run(PROFILED_ITERS)
+        torch.cuda.synchronize()
+        profiled_wall_ms = 1e3 * (time.perf_counter() - t1) / PROFILED_ITERS
+    from torch.autograd import DeviceType
+
+    rows = sorted(prof.key_averages(), key=lambda r: -_self_device_us(r))
+    kernel_rows = [r for r in rows if r.device_type == DeviceType.CUDA
+                   and not getattr(r, "is_user_annotation", False)]
+    kernel_ms = sum(_self_device_us(r) for r in kernel_rows) / 1e3 / PROFILED_ITERS
+    return dict(
+        config=" ".join(argv) + " (batch 8192, memory 5e6, fp32, reward scale 0.01)",
+        replay_ring=list(ring), replay_ring_gb=state.replay.data.numel() * 4 / 1e9,
+        card=smi, iterations=iters + PROFILED_ITERS, setup_s=setup_s,
+        ms_per_iter=statistics.median(block_ms), env_steps_per_s=1e3 * cfg.num_envs / statistics.median(block_ms),
+        block_ms_per_iter=block_ms,
+        critic_loss_last=float(lo[-1][0]), actor_loss_last=float(lo[-1][1]),
+        critic_updates=state.critic_update_count, actor_updates=state.actor_update_count,
+        replay_writes=state.replay.total_writes, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        train_return=float(state.return_tracker.mean()), episode_length=float(state.len_tracker.mean()),
+        profiled_wall_ms_per_iter=profiled_wall_ms,
+        sim_span_ms_per_iter=sim_span_ms,
+        profiled_kernel_ms_per_iter=kernel_ms,
+        top_kernels=[dict(name=r.key[:60], device_ms_per_iter=_self_device_us(r) / 1e3 / PROFILED_ITERS,
+                          calls_per_iter=r.count / PROFILED_ITERS) for r in kernel_rows[:10]],
+    )
+
+
 def main() -> int:
     import torch
 
@@ -369,6 +611,24 @@ def main() -> int:
     emit(dict(phase="reference", **reference_phase(dev)))
     main = main_path(dev, smi)
     emit(dict(phase="main_path", **main))
+    phys = physics_check(dev)
+    emit(dict(phase="physics_check", card=smi, tasks=phys))
+    ant = ant_main_path(dev, smi)
+    # device ms/iter = the profile's kernel time, graph kernels included;
+    # split into the sim (one Ant replay at the same E, profiled alone in
+    # physics_check: one control step per iteration) and the rest
+    pa = phys["Ant"]
+    check(pa["graph_replay_kernels_in_profile"] >= 0.99 * pa["launches_per_control_step"],
+          "the profiler does not trace the graph's kernels: no sim/learner split")
+    device_ms = ant["profiled_kernel_ms_per_iter"]
+    sim_ms = pa["graph_kernel_ms"]
+    ant.update(
+        device_ms_per_iter=device_ms, sim_graph_device_ms_per_iter=sim_ms,
+        learner_and_rest_device_ms_per_iter=device_ms - sim_ms,
+        device_busy_share=device_ms / ant["ms_per_iter"],
+        launches_per_control_step=pa["launches_per_control_step"], graph_replay_host_ms=pa["graph_replay_host_ms"],
+    )
+    emit(dict(phase="ant_main_path", **ant))
 
     emit({"kernels": [
         dict(name=c["name"], route="cuda", source=kernels.KERNELS[c["name"]]["source"],

@@ -1,10 +1,15 @@
-"""Environment registry (port of pql_tpu/envs/__init__.py; Cartpole only)."""
+"""Environment registry (port of pql_tpu/envs/__init__.py; Cartpole and the
+rigid-body locomotion tasks so far)."""
 
 from pql_tpu_torch.envs.base import Task, VecEnv, VecEnvState, handle_timeout
 from pql_tpu_torch.envs.classic import Cartpole
+from pql_tpu_torch.envs.rigid import Ant, Anymal, Humanoid
 
 TASK_REGISTRY = {
     "Cartpole": Cartpole,
+    "Ant": Ant,
+    "Humanoid": Humanoid,
+    "Anymal": Anymal,
 }
 
 

@@ -13,9 +13,10 @@ import torch
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
-from chip_smoke import C51_CASES, c51_case, c51_logit_scale
+from chip_smoke import C51_CASES, PHYS_MAX_FLIPS, RIGID_TASKS, STEP_TOL, c51_case, c51_logit_scale
 from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import make_config
+from pql_tpu_torch.envs import make_task
 from pql_tpu_torch.ops import kernels
 from pql_tpu_torch.ops.kernels import c51_td_target, c51_td_target_plain
 
@@ -167,4 +168,82 @@ def test_pql_d_iteration_on_card_matches_cpu(cuda):
     flat = {d: torch.cat([p.detach().cpu().flatten() for p in s.critic.parameters()]) for d, s in states.items()}
     assert float((flat["cuda"] - flat["cpu"]).norm() / (flat["cpu"] - theta0).norm()) <= 1e-2
     for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-3 * max(abs(b), 1e-6)
+
+
+def _rigid_state(name, E, steps, dev):
+    """A task, its state after ``steps`` control steps on ``dev`` from seeded
+    draws under uniform actions, and the next action."""
+    task = make_task(name)
+    gen = torch.Generator().manual_seed(0)
+    state = task.init_state(task.draw_reset(gen, E).to(dev))
+    actions = (torch.rand(steps + 1, E, task.action_dim, generator=gen) * 2.0 - 1.0).to(dev)
+    for t in range(steps):
+        state, _, _, _ = task.dynamics(state, actions[t])
+    return task, state, actions[steps]
+
+
+def _fields(res):
+    nxt, reward, terminated, info = res
+    assert info == {}
+    return dict(nxt, reward=reward, terminated=terminated)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", RIGID_TASKS)
+def test_rigid_graphed_step_equals_eager_bitwise(cuda, name):
+    """The captured control step and the same function run eagerly on the
+    card: no reductions across envs, the same kernels in the same order."""
+    task, state, action = _rigid_state(name, 512, 10, cuda)
+    assert (512, action.device) in task._graphs
+    graphed, eager = _fields(task.dynamics(state, action)), _fields(task.control_step(state, action))
+    for k in graphed:
+        assert torch.equal(graphed[k], eager[k]), k
+    # outputs are clones: the next replay leaves them alone
+    before = {k: v.clone() for k, v in graphed.items()}
+    task.dynamics(state, torch.zeros_like(action))
+    for k in graphed:
+        assert torch.equal(graphed[k], before[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", RIGID_TASKS)
+def test_rigid_card_matches_cpu(cuda, name):
+    """One control step on the card (graphed) against the CPU, from a state
+    rolled out on the card (tolerances and flips: chip_smoke.STEP_TOL)."""
+    E = 1024
+    task, state, action = _rigid_state(name, E, 20, cuda)
+    got = _fields(task.dynamics(state, action))
+    want = _fields(task.control_step({k: v.cpu() for k, v in state.items()}, action.cpu()))
+    off = got["terminated"].cpu() != want["terminated"]
+    for k, (rtol, atol) in STEP_TOL.items():
+        if k in want:
+            g, w = got[k].cpu(), want[k]
+            off |= ((g - w).abs() > atol + rtol * w.abs()).reshape(E, -1).any(-1)
+    assert int(off.sum()) <= PHYS_MAX_FLIPS * E // 4096, off.nonzero().flatten().tolist()
+
+
+@pytest.mark.gpu
+def test_ant_pql_iteration_on_card_matches_cpu(cuda):
+    """Warm-up and two PQL iterations on Ant at a small size on the card and
+    the CPU, same initial state and draws; the card's sim phase runs the
+    graphed control step. As the PQL-D test above: the critic's parameter
+    change must match to 1% of its norm, losses to 1e-3."""
+    cfg = make_config("pql", task="Ant", num_envs=64, algo__batch_size=256, algo__memory_size=4096,
+                      algo__warm_up=8)
+    agents = {d: PQL(cfg, device=d) for d in ("cpu", "cuda")}
+    states = {d: a.init() for d, a in agents.items()}
+    theta0 = torch.cat([p.detach().flatten() for p in states["cpu"].critic.parameters()])
+    gen = torch.Generator().manual_seed(1)
+    losses = {d: [] for d in agents}
+    for it in range(3):
+        draws = agents["cpu"].draw_iteration(gen, random=(it == 0))
+        for d, agent in agents.items():
+            step = agent.warmup if it == 0 else agent.train_iter
+            states[d], m = step(states[d], {k: v.to(d) for k, v in draws.items()})
+            losses[d].append(float(m["train/critic_loss"]))
+    assert len(agents["cuda"].env.task._graphs) == 1
+    flat = {d: torch.cat([p.detach().cpu().flatten() for p in s.critic.parameters()]) for d, s in states.items()}
+    assert float((flat["cuda"] - flat["cpu"]).norm() / (flat["cpu"] - theta0).norm()) <= 1e-2
+    for a, b in zip(losses["cuda"][1:], losses["cpu"][1:]):
         assert abs(a - b) <= 1e-3 * max(abs(b), 1e-6)

@@ -1,12 +1,15 @@
-"""Whole-slice parity: one PQL-D Cartpole iteration of the port against the JAX package.
+"""Whole-iteration parity: one PQL iteration of the port against the JAX package.
 
-A JAX ``PQL`` (``algo=pql_d task=Cartpole``, fp32, one-device mesh) is run
-through warm-up; its state is copied to numpy before ``train_iter`` (which
-donates its input), and this iteration's random draws are rebuilt from
-``state.rng`` with the JAX package's own functions: the key splits of
-``_fused_step_local``, ``per_row_normal``, ``VecEnv.env_keys`` and the
-``randint`` calls of ``replay_sample``. The port gets the state through
-``pql_state_from_jax`` and runs one iteration with those draws.
+Cases: PQL-D and PQL on Cartpole, and PQL on Ant (E = 8, batch 32), whose
+sim phase runs the ported rigid-body engine. A JAX ``PQL`` (fp32,
+one-device mesh) is run through warm-up; its state is copied to numpy
+before ``train_iter`` (which donates its input), and this iteration's
+random draws are rebuilt from ``state.rng`` with the JAX package's own
+functions: the key splits of ``_fused_step_local``, ``per_row_normal``,
+``VecEnv.env_keys``, each task's ``init_state`` draws
+(``test_torch_rigid.jax_reset_draws``) and the ``randint`` calls of
+``replay_sample``. The port gets the state through ``pql_state_from_jax``
+and runs one iteration with those draws.
 
 Tolerance rtol 1e-4 / atol 1e-5: both sides run fp32, but matrix products
 and reductions sum in another order, and 8 critic and 4 actor AdamW steps
@@ -31,9 +34,11 @@ from pql_tpu.parallel import make_mesh
 from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import make_config
 from pql_tpu_torch.utils.convert import load_pql_state, params_from_jax, pql_state_from_jax
+from test_torch_rigid import jax_reset_draws
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 SMALL = dict(num_envs=16, algo__batch_size=64, algo__memory_size=4096, algo__warm_up=4, algo__iters_per_call=1)
+SMALL_RIGID = dict(SMALL, num_envs=8, algo__batch_size=32)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -101,8 +106,7 @@ def _jax_draws(agent, cfg, rng) -> dict:
         k, _k_a, k_n, k_e = jax.random.split(k, 4)
         explore.append(per_row_normal(k_n, (E, A), jnp.float32, 0))
         _k_dyn, k_reset = jax.random.split(k_e)
-        fresh = jax.vmap(task.init_state)(agent.env_local.env_keys(k_reset, 0))
-        reset.append(jnp.stack([fresh[f] for f in ("x", "x_dot", "theta", "theta_dot")], -1))
+        reset.append(jax_reset_draws(task, agent.env_local.env_keys(k_reset, 0)))
 
     def sample_idx(k_s):
         k_slot, k_env = jax.random.split(k_s)
@@ -122,7 +126,7 @@ def _jax_draws(agent, cfg, rng) -> dict:
         a_env.append(env)
     t = lambda xs, dtype=None: torch.from_numpy(np.array(jnp.stack(xs))).to(dtype)  # noqa: E731
     return dict(
-        explore_normal=t(explore), reset=t(reset),
+        explore_normal=t(explore), reset=torch.stack(reset),
         critic_slot=t(c_slot, torch.int64), critic_env=t(c_env, torch.int64), target_normal=t(t_normal),
         actor_slot=t(a_slot, torch.int64), actor_env=t(a_env, torch.int64),
     )
@@ -146,9 +150,13 @@ def _assert_params(module, jax_nested, what, max_step):
         assert diff.max() <= max_step, f"{what}.{k}: max diff {diff.max()}"
 
 
-@pytest.mark.parametrize("algo", ["pql_d", "pql"])
-def test_one_iteration_matches_jax(algo):
-    jcfg = j_make_config(algo, task="Cartpole", **SMALL)
+@pytest.mark.parametrize("algo,task,size", [
+    pytest.param("pql_d", "Cartpole", SMALL, id="pql_d"),
+    pytest.param("pql", "Cartpole", SMALL, id="pql"),
+    pytest.param("pql", "Ant", SMALL_RIGID, id="pql-Ant"),
+])
+def test_one_iteration_matches_jax(algo, task, size):
+    jcfg = j_make_config(algo, task=task, **size)
     jagent = JPQL(jcfg, mesh=make_mesh(1))
     jstate = jagent.init(jax.random.PRNGKey(0))
     jstate, _ = jagent.warmup(jstate)
@@ -158,7 +166,7 @@ def test_one_iteration_matches_jax(algo):
     jstate, jmetrics = jagent.train_iter(jstate)
     after = _copy(jstate)
 
-    agent = PQL(make_config(algo, task="Cartpole", **SMALL), device="cpu")
+    agent = PQL(make_config(algo, task=task, **size), device="cpu")
     state = agent.init()
     load_pql_state(state, pql_state_from_jax(tree, before.replay.layout))
     state, metrics = agent.train_iter(state, draws)
@@ -215,10 +223,12 @@ def test_unported_options_fail_loudly(override):
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter importing the port (and its entry point) loads
-    neither JAX, flax, optax nor the JAX package."""
+    """A fresh interpreter importing the port (its entry point, the physics
+    engine and the rigid tasks) loads neither JAX, flax, optax nor the JAX
+    package."""
     code = (
         "import sys, pql_tpu_torch, pql_tpu_torch.train, pql_tpu_torch.algos.pql, pql_tpu_torch.utils.convert\n"
+        "import pql_tpu_torch.physics, pql_tpu_torch.physics.contact, pql_tpu_torch.envs.rigid\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pql_tpu')]\n"
         "assert not bad, bad\n"
     )
