@@ -32,9 +32,20 @@ line each:
 7. ant_main_path — ``algo=pql task=Ant num_envs=4096`` at full width
    (batch 8192, memory 5e6, fp32, reward scale 0.01): warm-up and at least
    20 iterations, with ms/iter, env-steps/s and, from a short profiled
-   window, device ms/iter split into the sim graph and the rest.
+   window, device ms/iter split into the sim graph and the rest;
+8. hand_physics_check — AllegroHand and ShadowHand at 8192 envs, as
+   physics_check (with the hand's per-step draws, its tolerances and
+   ``HAND_MAX_FLIPS``), plus the graph's capture and instantiate seconds,
+   the engaged contact pairs and the goals reached;
+9. allegro_main_path — ``algo=pql task=AllegroHand num_envs=8192`` (batch
+   8192, memory 5e6: ring 610 × 8192 × 124 fp32), as ant_main_path;
+10. allegro_pqld_main_path — ``algo=pql_d task=AllegroHand num_envs=16384
+   algo.memory_size=2000000`` (ring 122 × 16384 × 124 fp32, 51 atoms), as
+   ant_main_path, with ``c51_td_target`` launched 8 times per iteration.
 
-Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+Each main path resets the kernels' launch counts just before it runs and
+reads them just after. Then the ``{"kernels": [...]}`` line, the nvidia-smi
+line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits nonzero and prints no result. It imports nothing of JAX.
 """
@@ -75,10 +86,35 @@ PHYS_MAX_FLIPS = 4
 ANT_WARM_ITERS = 5  # untimed iterations after the warm-up
 ANT_BLOCKS = 4  # timed blocks of ANT_BLOCK_ITERS iterations
 ANT_BLOCK_ITERS = 5
+HAND_TASKS = ("AllegroHand", "ShadowHand")
+HAND_ENVS = 8192
+# The hand's tolerances, card against CPU, are those of its CPU parity tests
+# (tests/test_torch_hand.py): as STEP_TOL, with the reached-goal flag exact,
+# the target as positions, velocities at atol 1e-3 and the cube's angular
+# velocity at 1e-2 (its tiny inertia under capped finger contacts makes
+# each substep's increments tens of rad/s, which cancel; two fp32 steps
+# differ by up to ~7e-3 rad/s). At most HAND_MAX_FLIPS of the 8192 envs may
+# differ beyond them, each reported.
+HAND_STEP_TOL = {"q": (1e-4, 1e-5), "qd": (1e-4, 1e-3), "contact": (1e-4, 1e-5), "target": (1e-4, 1e-5),
+                 "reward": (1e-4, 1e-5), "success": (0.0, 0.0)}
+HAND_CUBE_W_ATOL = 1e-2
+HAND_MAX_FLIPS = 8
+HAND_WARM_ITERS = 2  # untimed iterations after the warm-up
+HAND_BLOCKS = 3  # timed blocks of HAND_BLOCK_ITERS iterations
+HAND_BLOCK_ITERS = 3
+HAND_PROFILED_ITERS = 2
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def timed(fn, *args):
+    """(fn(*args), host seconds it took): each phase's line carries its
+    ``wall_s``, to show where the script's time limit goes."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -382,13 +418,67 @@ def _kernel_launches(prof) -> int:
                if r.device_type == DeviceType.CUDA and not getattr(r, "is_user_annotation", False))
 
 
-def physics_check(dev) -> dict:
-    """Each rigid task at PHYS_ENVS envs: roll out PHYS_ROLL steps of its
-    VecEnv on the card (control steps through the graph, auto-reset) from
-    seeded draws under uniform actions, then take one control step from the
-    last state three ways — graphed on the card, eager on the card, eager on
-    the CPU — and time the graph and the eager step, and count one step's
-    kernel launches."""
+def graph_kernel_nodes(graph) -> tuple[int, int]:
+    """(kernel nodes, all nodes) of a captured ``torch.cuda.CUDAGraph`` made
+    with ``keep_graph=True``, counted by libcuda (cuGraphGetNodes,
+    cuGraphNodeGetType): the kernel launches of one replay. A profile of an
+    eager step of ~100k launches may lose kernel records (62,491 of 99,948
+    in one run), a count of the graph's nodes does not."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphGetNodes.restype = ctypes.c_int
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    cuda.cuGraphNodeGetType.restype = ctypes.c_int
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes (count)")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(handle, ctypes.cast(nodes, ctypes.c_void_p), ctypes.byref(n)) == 0,
+          "cuGraphGetNodes (nodes)")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0, "cuGraphNodeGetType")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels, n.value
+
+
+def step_tol(task) -> dict:
+    """Per state field (and reward, flags): (rtol, atol), atol a float or a
+    per-column tensor; the rigid tasks' STEP_TOL or the hand's."""
+    import torch
+
+    if type(task).__name__ not in HAND_TASKS:
+        return STEP_TOL
+    tol = dict(HAND_STEP_TOL)
+    atol = torch.full((task.model.nv,), HAND_STEP_TOL["qd"][1])
+    atol[task.cube_v : task.cube_v + 3] = HAND_CUBE_W_ATOL
+    tol["qd"] = (HAND_STEP_TOL["qd"][0], atol)
+    return tol
+
+
+def envs_beyond_tol(got: dict, want: dict, tol: dict, E: int):
+    """Envs where any compared field of the card's step differs from the
+    CPU's beyond ``tol`` (or terminated differs), and each field's largest
+    error over the other envs."""
+    keys = [k for k in tol if k in want]
+    err = {k: (got[k].cpu().float() - want[k].float()).abs().reshape(E, -1) for k in keys}
+    off = got["terminated"].cpu() != want["terminated"]
+    for k in keys:
+        rtol, atol = tol[k]
+        off |= (err[k] > atol + rtol * want[k].float().abs().reshape(E, -1)).any(-1)
+    ok = ~off
+    return [int(i) for i in off.nonzero().flatten()], {k: float(err[k][ok].max()) if ok.any() else None for k in keys}
+
+
+def physics_check(dev, tasks, E: int, max_flips: int) -> dict:
+    """Each task at E envs: roll out PHYS_ROLL steps of its VecEnv on the
+    card (control steps through the graph, auto-reset, the task's per-step
+    draws if it has them) from seeded draws under uniform actions, then take
+    one control step from the last state three ways — graphed on the card,
+    eager on the card, eager on the CPU — and time the graph and the eager
+    step, and count one step's kernel launches (the graph's kernel nodes)."""
     import statistics
 
     import torch
@@ -397,44 +487,41 @@ def physics_check(dev) -> dict:
 
     from pql_tpu_torch.envs import VecEnv, make_task
 
-    E, out = PHYS_ENVS, {}
-    for name in RIGID_TASKS:
+    out = {}
+    for name in tasks:
         task = make_task(name)
         env = VecEnv(task, E)
         gen = torch.Generator().manual_seed(0)
         s, _ = env.reset(task.draw_reset(gen, E).to(dev))
         actions = (torch.rand(PHYS_ROLL + 1, E, task.action_dim, generator=gen) * 2.0 - 1.0).to(dev)
         resets = torch.stack([task.draw_reset(gen, E) for _ in range(PHYS_ROLL)]).to(dev)
+        if hasattr(task, "draw_step"):
+            step_draws = list(torch.stack([task.draw_step(gen, E) for _ in range(PHYS_ROLL + 1)]).to(dev))
+        else:
+            step_draws = [None] * (PHYS_ROLL + 1)
         t0 = time.perf_counter()
         for t in range(PHYS_ROLL):  # with auto-reset, so fallen envs restart
-            s, _, _, _, _ = env.step(s, actions[t], resets[t])
+            s, _, _, _, _ = env.step(s, actions[t], resets[t], step_draws[t])
         torch.cuda.synchronize()
         roll_s = time.perf_counter() - t0
         state = s.state
         action = actions[PHYS_ROLL]
-        graphed = task.dynamics(state, action)
-        eager = task.control_step(state, action)
-        cpu = task.control_step({k: v.cpu() for k, v in state.items()}, action.cpu())
+        draw = () if step_draws[PHYS_ROLL] is None else (step_draws[PHYS_ROLL],)
+        graphed = task.dynamics(state, action, *draw)
+        eager = task.control_step(state, action, *draw)
+        cpu = task.control_step({k: v.cpu() for k, v in state.items()}, action.cpu(), *(x.cpu() for x in draw))
         torch.cuda.synchronize()
 
         def fields(res):
-            nxt, reward, terminated, _ = res
-            return dict(nxt, reward=reward, terminated=terminated)
+            nxt, reward, terminated, info = res
+            return dict(nxt, reward=reward, terminated=terminated, **info)
 
         g, e, c = fields(graphed), fields(eager), fields(cpu)
         for k in g:
             check(torch.equal(g[k], e[k]), f"{name}: graphed and eager steps differ in {k}")
         check(bool(torch.isfinite(g["q"]).all()), f"{name}: non-finite q after {PHYS_ROLL} steps")
-        # card against CPU, per env
-        keys = [k for k in STEP_TOL if k in g]
-        err = {k: (g[k].cpu() - c[k]).abs().reshape(E, -1) for k in keys}
-        off_env = g["terminated"].cpu() != c["terminated"]
-        for k in keys:
-            rtol, atol = STEP_TOL[k]
-            off_env |= (err[k] > atol + rtol * c[k].abs().reshape(E, -1)).any(-1)
-        flips = [int(i) for i in off_env.nonzero().flatten()]
-        check(len(flips) <= PHYS_MAX_FLIPS, f"{name}: card and CPU differ beyond tolerance in envs {flips}")
-        max_err = {k: float(err[k][~off_env].max()) for k in keys}
+        flips, max_err = envs_beyond_tol(g, c, step_tol(task), E)
+        check(len(flips) <= max_flips, f"{name}: card and CPU differ beyond tolerance in envs {flips}")
 
         graph = task._graphs[(E, action.device)]
         # back-to-back replays between CUDA events: the replay period, which is
@@ -461,16 +548,15 @@ def physics_check(dev) -> dict:
         eager_ms = []
         for _ in range(3):
             t1 = time.perf_counter()
-            task.control_step(state, action)
+            task.control_step(state, action, *draw)
             torch.cuda.synchronize()
             eager_ms.append(1e3 * (time.perf_counter() - t1))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            task.control_step(state, action)
-            torch.cuda.synchronize()
-        launches = _kernel_launches(prof)
+        launches, nodes = graph_kernel_nodes(graph.graph)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             graph.graph.replay()
             torch.cuda.synchronize()
+        replay_in_profile = _kernel_launches(prof)
+        check(replay_in_profile >= 0.99 * launches, f"{name}: the profiler does not trace the graph's kernels")
         # the graph's device time: its kernels' durations in a profile of one replay
         graph_kernel_ms = sum(_self_device_us(r) for r in prof.key_averages()
                               if r.device_type == DeviceType.CUDA) / 1e3
@@ -480,51 +566,59 @@ def physics_check(dev) -> dict:
             engaged_pairs=int((g["contact"][:, 3::4] > 0.5).sum()),
             graph_kernel_ms=graph_kernel_ms, graph_replay_period_ms=statistics.median(period_ms),
             graph_replay_period_ms_timings=period_ms, graph_replay_host_ms=statistics.median(submit_ms),
-            eager_wall_ms=statistics.median(eager_ms),
-            launches_per_control_step=launches, graph_replay_kernels_in_profile=_kernel_launches(prof),
+            graph_build_s=graph.build_s, eager_wall_ms=statistics.median(eager_ms),
+            launches_per_control_step=launches, graph_nodes=nodes, graph_replay_kernels_in_profile=replay_in_profile,
         )
+        if "success" in g:
+            out[name]["goals_reached"] = int(g["success"].sum())
     return out
 
 
-def ant_main_path(dev, smi: str) -> dict:
-    """``algo=pql task=Ant num_envs=4096`` at full width: warm-up, then
-    ANT_WARM_ITERS + ANT_BLOCKS x ANT_BLOCK_ITERS iterations timed in blocks,
-    then a profiled window, whose kernel time is the device time of whole
-    iterations (the profiler traces the graph's kernels, physics_check
-    shows). CUDA events around every control step of the timed blocks
-    (input copies, graph replay, output clones) give the sim's span on the
-    stream, which also holds any time the device waits for the host to
-    submit the graph."""
+def rigid_main_path(dev, smi: str, argv: list[str], warm_iters: int, blocks: int, block_iters: int,
+                    profiled_iters: int) -> dict:
+    """A PQL path on a rigid-body or hand task at full width: warm-up, then
+    ``warm_iters`` + ``blocks`` x ``block_iters`` iterations timed in blocks,
+    then a profiled window of ``profiled_iters``, whose kernel time is the
+    device time of whole iterations (the profiler traces the graph's kernels:
+    one replay profiled alone must show at least 99% of the graph's kernel
+    nodes). That replay's kernel time is the sim's share.
+    CUDA events around every control step of the timed blocks (input copies,
+    graph replay, output clones) give the sim's span on the stream, which
+    also holds any time the device waits for the host to submit the graph.
+    The kernels' launch counts are reset before the path runs and read
+    after it."""
     import statistics
 
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pql_tpu_torch.algos.pql import PQL
     from pql_tpu_torch.cfg import parse_cli
+    from pql_tpu_torch.ops import kernels
 
-    argv = ["algo=pql", "task=Ant", "num_envs=4096"]
     cfg = parse_cli(argv)
     agent = PQL(cfg, device=dev)
-    task = agent.env.task
+    task, E, label = agent.env.task, cfg.num_envs, f"{cfg.task}@{cfg.num_envs}"
     sim_events = []
     graphed = task.dynamics
 
-    def timed_dynamics(state, action):
+    def timed_dynamics(state, action, *draw):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        res = graphed(state, action)
+        res = graphed(state, action, *draw)
         end.record()
         sim_events.append((start, end))
         return res
 
     task.dynamics = timed_dynamics
     torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     state = agent.init()
-    # ring: memory 5e6 // 4096 envs = 1220 slots of 34 + 8 + 1 + 34 + 1 = 78 fp32 columns
-    ring = (int(cfg.algo.memory_size) // cfg.num_envs, cfg.num_envs, 78)
-    check(tuple(state.replay.data.shape) == ring, f"Ant replay ring {tuple(state.replay.data.shape)}, want {ring}")
+    # ring: memory // E slots of obs + action + reward + next_obs + done fp32 columns
+    ring = (int(cfg.algo.memory_size) // E, E, 2 * agent.obs_dim + agent.action_dim + 2)
+    check(tuple(state.replay.data.shape) == ring, f"{label} replay ring {tuple(state.replay.data.shape)}, want {ring}")
     state, _ = agent.warmup(state)
     losses, block_ms = [], []
 
@@ -534,54 +628,68 @@ def ant_main_path(dev, smi: str) -> dict:
             state, m = agent.train_iter(state)
             losses.append(torch.stack([m["train/critic_loss"], m["train/actor_loss"]]))
 
-    run(ANT_WARM_ITERS)
+    run(warm_iters)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     steps_before = len(sim_events)
-    for _ in range(ANT_BLOCKS):
+    for _ in range(blocks):
         t1 = time.perf_counter()
-        run(ANT_BLOCK_ITERS)
+        run(block_iters)
         torch.cuda.synchronize()
-        block_ms.append(1e3 * (time.perf_counter() - t1) / ANT_BLOCK_ITERS)
-    iters = ANT_WARM_ITERS + ANT_BLOCKS * ANT_BLOCK_ITERS
-    lo = torch.stack(losses).cpu()
-    check(bool(torch.isfinite(lo).all()), "non-finite loss on the Ant main path")
-    check(state.critic_update_count == 8 * iters and state.actor_update_count == 4 * iters,
-          f"Ant counters {state.critic_update_count}:{state.actor_update_count} after {iters} iterations")
-    check(state.replay.total_writes == cfg.algo.warm_up + iters, "Ant replay writes")
-    for name in ("return_tracker", "len_tracker"):
-        check(bool(torch.isfinite(getattr(state, name).mean())), f"Ant {name} mean")
-    check(len(sim_events) == cfg.algo.warm_up + iters, f"{len(sim_events)} control steps")
+        block_ms.append(1e3 * (time.perf_counter() - t1) / block_iters)
     timed = sim_events[steps_before:]
     sim_span_ms = sum(s.elapsed_time(e) for s, e in timed) / len(timed)  # one control step per iteration
     task.dynamics = graphed
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        run(PROFILED_ITERS)
+        run(profiled_iters)
         torch.cuda.synchronize()
-        profiled_wall_ms = 1e3 * (time.perf_counter() - t1) / PROFILED_ITERS
-    from torch.autograd import DeviceType
+        profiled_wall_ms = 1e3 * (time.perf_counter() - t1) / profiled_iters
+    launches = dict(kernels.LAUNCHES)
+    iters = warm_iters + blocks * block_iters + profiled_iters
+    lo = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(lo).all()), f"non-finite loss on the {label} path")
+    check(state.critic_update_count == 8 * iters and state.actor_update_count == 4 * iters,
+          f"{label} counters {state.critic_update_count}:{state.actor_update_count} after {iters} iterations")
+    check(state.replay.total_writes == cfg.algo.warm_up + iters, f"{label} replay writes")
+    for name in ("return_tracker", "len_tracker", "success_tracker"):
+        check(bool(torch.isfinite(getattr(state, name).mean())), f"{label} {name} mean")
+    check(len(sim_events) == cfg.algo.warm_up + iters - profiled_iters, f"{len(sim_events)} control steps")
+    if cfg.algo.distl and cfg.algo.use_pallas:
+        check(launches["c51_td_target"] == 8 * iters,
+              f"c51_td_target launched {launches['c51_td_target']} times in {iters} iterations of {label}")
 
     rows = sorted(prof.key_averages(), key=lambda r: -_self_device_us(r))
     kernel_rows = [r for r in rows if r.device_type == DeviceType.CUDA
                    and not getattr(r, "is_user_annotation", False)]
-    kernel_ms = sum(_self_device_us(r) for r in kernel_rows) / 1e3 / PROFILED_ITERS
+    kernel_ms = sum(_self_device_us(r) for r in kernel_rows) / 1e3 / profiled_iters
+    graph = task._graphs[(E, torch.device(dev))]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
+        graph.graph.replay()
+        torch.cuda.synchronize()
+    graph_kernels, _ = graph_kernel_nodes(graph.graph)
+    check(_kernel_launches(gprof) >= 0.99 * graph_kernels,
+          f"the profiler does not trace the {label} graph's kernels: no sim/learner split")
+    sim_ms = sum(_self_device_us(r) for r in gprof.key_averages() if r.device_type == DeviceType.CUDA) / 1e3
+    ms = statistics.median(block_ms)
     return dict(
-        config=" ".join(argv) + " (batch 8192, memory 5e6, fp32, reward scale 0.01)",
+        config=" ".join(argv) + f" (batch {cfg.algo.batch_size}, memory {cfg.algo.memory_size:g}, fp32, "
+                                f"reward scale {cfg.algo.reward_scale:g})",
         replay_ring=list(ring), replay_ring_gb=state.replay.data.numel() * 4 / 1e9,
-        card=smi, iterations=iters + PROFILED_ITERS, setup_s=setup_s,
-        ms_per_iter=statistics.median(block_ms), env_steps_per_s=1e3 * cfg.num_envs / statistics.median(block_ms),
-        block_ms_per_iter=block_ms,
+        card=smi, iterations=iters, setup_s=setup_s, graph_build_s=graph.build_s,
+        ms_per_iter=ms, env_steps_per_s=1e3 * E / ms, block_ms_per_iter=block_ms,
         critic_loss_last=float(lo[-1][0]), actor_loss_last=float(lo[-1][1]),
         critic_updates=state.critic_update_count, actor_updates=state.actor_update_count,
         replay_writes=state.replay.total_writes, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         train_return=float(state.return_tracker.mean()), episode_length=float(state.len_tracker.mean()),
-        profiled_wall_ms_per_iter=profiled_wall_ms,
-        sim_span_ms_per_iter=sim_span_ms,
-        profiled_kernel_ms_per_iter=kernel_ms,
-        top_kernels=[dict(name=r.key[:60], device_ms_per_iter=_self_device_us(r) / 1e3 / PROFILED_ITERS,
-                          calls_per_iter=r.count / PROFILED_ITERS) for r in kernel_rows[:10]],
+        success_rate=float(state.success_tracker.mean()), launches=launches,
+        profiled_wall_ms_per_iter=profiled_wall_ms, sim_span_ms_per_iter=sim_span_ms,
+        device_ms_per_iter=kernel_ms, sim_graph_device_ms_per_iter=sim_ms,
+        learner_and_rest_device_ms_per_iter=kernel_ms - sim_ms, device_busy_share=kernel_ms / ms,
+        launches_per_control_step=graph_kernels,
+        top_kernels=[dict(name=r.key[:60], device_ms_per_iter=_self_device_us(r) / 1e3 / profiled_iters,
+                          calls_per_iter=r.count / profiled_iters) for r in kernel_rows[:10]],
     )
 
 
@@ -606,33 +714,33 @@ def main() -> int:
     built = kernels.build_kernels()
     emit(dict(phase="build", seconds=time.perf_counter() - t0, sources=built))
 
-    checks = [check_c51(dev)]
-    emit(dict(phase="kernel_check", card=smi, kernels=checks))
-    emit(dict(phase="reference", **reference_phase(dev)))
-    main = main_path(dev, smi)
-    emit(dict(phase="main_path", **main))
-    phys = physics_check(dev)
-    emit(dict(phase="physics_check", card=smi, tasks=phys))
-    ant = ant_main_path(dev, smi)
-    # device ms/iter = the profile's kernel time, graph kernels included;
-    # split into the sim (one Ant replay at the same E, profiled alone in
-    # physics_check: one control step per iteration) and the rest
-    pa = phys["Ant"]
-    check(pa["graph_replay_kernels_in_profile"] >= 0.99 * pa["launches_per_control_step"],
-          "the profiler does not trace the graph's kernels: no sim/learner split")
-    device_ms = ant["profiled_kernel_ms_per_iter"]
-    sim_ms = pa["graph_kernel_ms"]
-    ant.update(
-        device_ms_per_iter=device_ms, sim_graph_device_ms_per_iter=sim_ms,
-        learner_and_rest_device_ms_per_iter=device_ms - sim_ms,
-        device_busy_share=device_ms / ant["ms_per_iter"],
-        launches_per_control_step=pa["launches_per_control_step"], graph_replay_host_ms=pa["graph_replay_host_ms"],
-    )
-    emit(dict(phase="ant_main_path", **ant))
+    c51, s = timed(check_c51, dev)
+    checks = [c51]
+    emit(dict(phase="kernel_check", card=smi, wall_s=s, kernels=checks))
+    ref, s = timed(reference_phase, dev)
+    emit(dict(phase="reference", wall_s=s, **ref))
+    main, s = timed(main_path, dev, smi)
+    emit(dict(phase="main_path", wall_s=s, **main))
+    phys, s = timed(physics_check, dev, RIGID_TASKS, PHYS_ENVS, PHYS_MAX_FLIPS)
+    emit(dict(phase="physics_check", card=smi, wall_s=s, tasks=phys))
+    ant, s = timed(rigid_main_path, dev, smi, ["algo=pql", "task=Ant", "num_envs=4096"], ANT_WARM_ITERS,
+                   ANT_BLOCKS, ANT_BLOCK_ITERS, PROFILED_ITERS)
+    emit(dict(phase="ant_main_path", wall_s=s, **ant))
+    hand, s = timed(physics_check, dev, HAND_TASKS, HAND_ENVS, HAND_MAX_FLIPS)
+    emit(dict(phase="hand_physics_check", card=smi, wall_s=s, tasks=hand))
+    hand_depth = (HAND_WARM_ITERS, HAND_BLOCKS, HAND_BLOCK_ITERS, HAND_PROFILED_ITERS)
+    allegro, s = timed(rigid_main_path, dev, smi, ["algo=pql", "task=AllegroHand", "num_envs=8192"], *hand_depth)
+    emit(dict(phase="allegro_main_path", wall_s=s, **allegro))
+    allegro_d, s = timed(rigid_main_path, dev, smi, ["algo=pql_d", "task=AllegroHand", "num_envs=16384",
+                                                     "algo.memory_size=2000000"], *hand_depth)
+    emit(dict(phase="allegro_pqld_main_path", wall_s=s, **allegro_d))
 
+    by_path = {"pql_d Cartpole@4096": main["launches"], "pql_d AllegroHand@16384": allegro_d["launches"]}
     emit({"kernels": [
         dict(name=c["name"], route="cuda", source=kernels.KERNELS[c["name"]]["source"],
-             replaces=kernels.KERNELS[c["name"]]["replaces"], launches=main["launches"][c["name"]],
+             replaces=kernels.KERNELS[c["name"]]["replaces"],
+             launches=sum(n[c["name"]] for n in by_path.values()),
+             launches_by_path={p: n[c["name"]] for p, n in by_path.items()},
              max_abs_err=c["max_abs_err"], ms=c["ms"], ms_cold=c["ms_cold"], same_bytes_ms=c["same_bytes_ms"],
              plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=c["library_ms"])
         for c in checks

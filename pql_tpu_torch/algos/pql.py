@@ -155,6 +155,9 @@ class PQL:
         - ``action_uniform`` [H, E, A] U(-1, 1) (warm-up) or
           ``explore_normal`` [H, E, A] standard normal;
         - ``reset`` [H, E, k]: the task's fresh-episode draws;
+        - ``step`` [H, E, k]: the task's per-step draws, only for a task
+          with ``draw_step`` (drawn after ``reset``, so the other tasks'
+          draws are unchanged);
         - ``critic_slot`` / ``critic_env`` [n_critic, B]: raw slot draws on
           [0, 2^30) and env indices; ``target_normal`` [n_critic, B, A];
         - ``actor_slot`` / ``actor_env`` [n_actor, B].
@@ -166,7 +169,10 @@ class PQL:
             d["action_uniform"] = torch.rand(horizon, E, A, generator=gen, device=gen.device) * 2.0 - 1.0
         else:
             d["explore_normal"] = torch.randn(horizon, E, A, generator=gen, device=gen.device)
-        d["reset"] = torch.stack([self.env.task.draw_reset(gen, E) for _ in range(horizon)])
+        task = self.env.task
+        d["reset"] = torch.stack([task.draw_reset(gen, E) for _ in range(horizon)])
+        if hasattr(task, "draw_step"):
+            d["step"] = torch.stack([task.draw_step(gen, E) for _ in range(horizon)])
         if not random:
             B = cfg.algo.batch_size
             d["critic_slot"], d["critic_env"] = draw_sample_indices(gen, self.n_critic, B, E)
@@ -245,7 +251,7 @@ class PQL:
                     state.actor(obs_n), draws["explore_normal"][t], std_hi, out_bounds=(-1.0, 1.0)
                 )
             state.env_state, next_obs, reward, done, info = self.env.step(
-                state.env_state, action, draws["reset"][t]
+                state.env_state, action, draws["reset"][t], draws["step"][t] if "step" in draws else None
             )
 
             # episode accounting (reference pql_actor.update_tracker, :129-147)

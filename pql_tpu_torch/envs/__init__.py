@@ -1,8 +1,9 @@
-"""Environment registry (port of pql_tpu/envs/__init__.py; Cartpole and the
-rigid-body locomotion tasks so far)."""
+"""Environment registry (port of pql_tpu/envs/__init__.py; Cartpole, the
+rigid-body locomotion tasks and the in-hand manipulation tasks so far)."""
 
 from pql_tpu_torch.envs.base import Task, VecEnv, VecEnvState, handle_timeout
 from pql_tpu_torch.envs.classic import Cartpole
+from pql_tpu_torch.envs.hand import AllegroHand, ShadowHand
 from pql_tpu_torch.envs.rigid import Ant, Anymal, Humanoid
 
 TASK_REGISTRY = {
@@ -10,6 +11,8 @@ TASK_REGISTRY = {
     "Ant": Ant,
     "Humanoid": Humanoid,
     "Anymal": Anymal,
+    "AllegroHand": AllegroHand,
+    "ShadowHand": ShadowHand,
 }
 
 

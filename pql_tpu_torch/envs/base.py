@@ -11,7 +11,11 @@ the same:
 
 Randomness never comes from a global RNG: the fresh episode states used by
 auto-reset are drawn by the caller (``Task.draw_reset``) and handed to
-``step``, which is the seam the parity tests inject JAX's draws through.
+``step``, which is the seam the parity tests inject JAX's draws through. A
+task that draws inside its dynamics (the hand re-samples its goal on
+success) also has ``draw_step(gen, E)``; the caller hands that draw to
+``step`` too, which passes it to ``dynamics`` as a third argument (the
+JAX package derives it per env from the step's key, ``fold_in(k_dyn, i)``).
 """
 
 from __future__ import annotations
@@ -38,8 +42,9 @@ class Task(Protocol):
     def get_obs(self, state: dict[str, torch.Tensor]) -> torch.Tensor:
         """[E, obs_dim] observations."""
 
-    def dynamics(self, state: dict[str, torch.Tensor], action: torch.Tensor):
-        """One step: (next_state, reward [E], terminated [E] bool, info)."""
+    def dynamics(self, state: dict[str, torch.Tensor], action: torch.Tensor, *step_draw: torch.Tensor):
+        """One step: (next_state, reward [E], terminated [E] bool, info).
+        ``step_draw``: the ``draw_step`` draw, for tasks that have one."""
 
 
 @dataclass
@@ -63,14 +68,17 @@ class VecEnv:
         time = torch.zeros(self.num_envs, dtype=torch.int32, device=draw.device)
         return VecEnvState(state=state, time=time), self.task.get_obs(state)
 
-    def step(self, s: VecEnvState, actions: torch.Tensor, reset_draw: torch.Tensor):
+    def step(self, s: VecEnvState, actions: torch.Tensor, reset_draw: torch.Tensor,
+             step_draw: torch.Tensor | None = None):
         """Lockstep step with auto-reset; ``reset_draw`` holds every env's
-        would-be fresh state (only done envs use theirs).
+        would-be fresh state (only done envs use theirs); ``step_draw`` is
+        the task's ``draw_step`` draw, None for a task without one.
 
         Returns (state, obs, reward, done, info) with done = terminated or
         truncated, as float32.
         """
-        next_state, reward, terminated, info = self.task.dynamics(s.state, actions)
+        extra = () if step_draw is None else (step_draw,)
+        next_state, reward, terminated, info = self.task.dynamics(s.state, actions, *extra)
         time = s.time + 1
         truncated = (time >= self.max_episode_length) & ~terminated
         done = terminated | truncated

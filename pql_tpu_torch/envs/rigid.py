@@ -18,76 +18,127 @@ one captured CUDA graph per (E, device), replayed every step: eagerly the
 step is tens of thousands of small kernel launches, which the host could
 not issue fast enough. The CPU runs the same function eagerly. If capture
 or replay fails, the error is raised; nothing falls back to eager on the
-card.
+card. ``GraphedStep`` and ``GraphedTask`` hold that machinery for every
+task on the engine, the hand's (pql_tpu_torch.envs.hand) included.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from pql_tpu_torch.physics import FREE, Geom, HINGE, RigidBodyModel
-from pql_tpu_torch.physics.contact import GroundPairs, derive_pair, ground_anchored_v, ground_pairs, point_eff_mass
+from pql_tpu_torch.physics.contact import SpherePairs, derive_pair, ground_anchored_v, ground_pairs, point_eff_mass
 from pql_tpu_torch.physics.dynamics import physics_substeps
 from pql_tpu_torch.physics.spatial import quat_rotate
 
 
 class GraphedStep:
-    """A pure step function ``fn(state, action) -> (next_state, reward,
-    terminated, info)`` captured once in a CUDA graph.
+    """A pure step function ``fn(state, *inputs) -> (next_state, reward,
+    terminated, info)`` captured once in a CUDA graph; ``inputs`` are
+    tensors (the action, and the task's per-step draw if it has one).
 
     Each call copies the inputs into the graph's static buffers, replays,
-    and clones the outputs, so no returned tensor aliases a buffer the next
-    replay overwrites. The function must not sync with the host."""
+    and clones the outputs, info included, so no returned tensor aliases a
+    buffer the next replay overwrites. The function must not sync with the
+    host."""
 
-    def __init__(self, fn, state: dict[str, torch.Tensor], action: torch.Tensor):
-        dev = action.device
+    def __init__(self, fn, state: dict[str, torch.Tensor], *inputs: torch.Tensor):
+        dev = inputs[0].device
         self.state_in = {k: v.clone() for k, v in state.items()}
-        self.action_in = action.clone()
+        self.inputs = [x.clone() for x in inputs]
+        t0 = time.perf_counter()
         with torch.cuda.device(dev):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):  # warm-up off the capture, as capture requires
-                fn(self.state_in, self.action_in)
+                fn(self.state_in, *self.inputs)
             torch.cuda.current_stream().wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)  # instantiated below, to time it apart
             with torch.cuda.graph(self.graph):
-                self.out = fn(self.state_in, self.action_in)
+                self.out = fn(self.state_in, *self.inputs)
+            t2 = time.perf_counter()
+            self.graph.instantiate()
+        # host seconds of the eager warm-up, the capture and the instantiation
+        self.build_s = dict(warmup=t1 - t0, capture=t2 - t1, instantiate=time.perf_counter() - t2)
 
-    def __call__(self, state: dict[str, torch.Tensor], action: torch.Tensor):
+    def __call__(self, state: dict[str, torch.Tensor], *inputs: torch.Tensor):
         if state.keys() != self.state_in.keys():
             raise KeyError(f"state keys {sorted(state)} differ from the captured {sorted(self.state_in)}")
+        if len(inputs) != len(self.inputs):
+            raise TypeError(f"{len(inputs)} step inputs, the graph was captured with {len(self.inputs)}")
         for k, buf in self.state_in.items():
             buf.copy_(state[k])
-        self.action_in.copy_(action)
+        for buf, x in zip(self.inputs, inputs):
+            buf.copy_(x)
         self.graph.replay()
         next_state, reward, terminated, info = self.out
-        return {k: v.clone() for k, v in next_state.items()}, reward.clone(), terminated.clone(), dict(info)
+        clone = lambda d: {k: v.clone() for k, v in d.items()}  # noqa: E731
+        return clone(next_state), reward.clone(), terminated.clone(), clone(info)
+
+
+class GraphedTask:
+    """What every task on the ported engine shares: its tensor constants,
+    built once per device by ``_make_consts`` (a graph capture allows no
+    host-to-device copy), and ``dynamics``, which runs ``control_step``
+    eagerly on the CPU and through one captured CUDA graph per (E, device)
+    on a card."""
+
+    def __init__(self):
+        self._consts: dict[torch.device, object] = {}
+        self._graphs: dict[tuple[int, torch.device], GraphedStep] = {}
+
+    def _make_consts(self, device: torch.device):
+        raise NotImplementedError
+
+    def _on(self, device: torch.device):
+        c = self._consts.get(device)
+        if c is None:
+            c = self._consts[device] = self._make_consts(device)
+        return c
+
+    def control_step(self, state, action, *draw):
+        """One control step, eagerly: (next_state, reward [E], terminated [E], info)."""
+        raise NotImplementedError
+
+    def dynamics(self, state: dict[str, torch.Tensor], action: torch.Tensor, *draw: torch.Tensor):
+        """``control_step``; on a CUDA device through its captured graph."""
+        if action.device.type != "cuda":
+            return self.control_step(state, action, *draw)
+        key = (action.shape[0], action.device)
+        graph = self._graphs.get(key)
+        if graph is None:
+            self._on(action.device)  # constants first: capture allows no copies from the host
+            graph = self._graphs[key] = GraphedStep(self.control_step, state, action, *draw)
+        return graph(state, action, *draw)
 
 
 @dataclass(frozen=True)
 class _DeviceConsts:
-    """A task's tensor constants on one device, built once (a graph
-    capture allows no host-to-device copy)."""
+    """A locomotion task's tensor constants on one device."""
 
     init_q: torch.Tensor  # [nq] the initial pose before the random hinge offsets
-    ground: GroundPairs
+    ground: SpherePairs
     ez: torch.Tensor  # [3] world up
     ex: torch.Tensor  # [3] world forward
     cmd_scale: torch.Tensor  # [3] command ranges (Anymal's; zeros for the others)
 
 
-class _RigidTask:
+class _RigidTask(GraphedTask):
     """What Ant, Humanoid and Anymal share: anchored ground contact for every
-    geom, the reset draw, per-device constants and the graphed step."""
+    geom, the reset draw and the per-device constants."""
 
     substeps = 4  # 240 Hz physics, 60 Hz control
     init_noise = 0.1  # half-width of the uniform hinge offsets at reset
     cmd_scale = (0.0, 0.0, 0.0)
 
     def __init__(self, model: RigidBodyModel):
+        super().__init__()
         self.model = model
         m = model
         # anchored-contact gains: per-geom stable penalty pairs vs the ground
@@ -98,25 +149,20 @@ class _RigidTask:
             for g in m.geoms
         ]
         self.n_contact_pairs = len(m.geoms)
-        self._consts: dict[torch.device, _DeviceConsts] = {}
-        self._graphs: dict[tuple[int, torch.device], GraphedStep] = {}
 
     def _init_q(self) -> np.ndarray:
         """[nq] float32 pose that ``init_state`` adds the hinge offsets to."""
         raise NotImplementedError
 
-    def _on(self, device: torch.device) -> _DeviceConsts:
-        c = self._consts.get(device)
-        if c is None:
-            t = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
-            c = self._consts[device] = _DeviceConsts(
-                init_q=t(self._init_q()),
-                ground=ground_pairs(self.model, self._pp_ground, device),
-                ez=t([0.0, 0.0, 1.0]),
-                ex=t([1.0, 0.0, 0.0]),
-                cmd_scale=t(self.cmd_scale),
-            )
-        return c
+    def _make_consts(self, device: torch.device) -> _DeviceConsts:
+        t = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
+        return _DeviceConsts(
+            init_q=t(self._init_q()),
+            ground=ground_pairs(self.model, self._pp_ground, device),
+            ez=t([0.0, 0.0, 1.0]),
+            ex=t([1.0, 0.0, 0.0]),
+            cmd_scale=t(self.cmd_scale),
+        )
 
     # ------------------------------------------------------------ resets
 
@@ -150,21 +196,6 @@ class _RigidTask:
             self.model, state["q"], state["qd"], action, self.substeps,
             contact_fn=contact_fn, contact_state=state["contact"],
         )
-
-    def control_step(self, state, action):
-        """One control step, eagerly: (next_state, reward [E], terminated [E], info)."""
-        raise NotImplementedError
-
-    def dynamics(self, state: dict[str, torch.Tensor], action: torch.Tensor):
-        """``control_step``; on a CUDA device through its captured graph."""
-        if action.device.type != "cuda":
-            return self.control_step(state, action)
-        key = (action.shape[0], action.device)
-        graph = self._graphs.get(key)
-        if graph is None:
-            self._on(action.device)  # constants first: capture allows no copies from the host
-            graph = self._graphs[key] = GraphedStep(self.control_step, state, action)
-        return graph(state, action)
 
 
 def ant_model(dt: float = 1.0 / 240.0) -> RigidBodyModel:

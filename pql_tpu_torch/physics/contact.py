@@ -1,5 +1,6 @@
-"""Anchored sphere-vs-ground contacts (port of the anchored ground group of
-pql_tpu/physics/contact.py).
+"""Anchored penalty contacts (port of the anchored pair groups of
+pql_tpu/physics/contact.py): spheres vs the ground, spheres vs an oriented
+box, box corners vs the ground plane and vs a spherical bowl.
 
 Static friction + effective-mass-stable gains: per-PAIR penalty gains
 derived from point effective masses (``derive_pair``), and a tangential
@@ -9,14 +10,17 @@ the env state as a flat per-env array (4 scalars per pair: anchor xyz +
 engaged flag), as [E] columns through the substeps
 (dynamics.physics_substeps(contact_state=...)).
 
-All sphere geoms of a model are one pair GROUP, batched as [E, n] tensors
-(n pairs), with the per-pair constants (body-frame offsets, radii, gains)
-as [n] float32 tensors. Those constants are built once per device by
-``ground_pairs``: a numpy array cannot multiply a CUDA tensor, a float64
-one would promote every op it touches, and a CUDA-graph capture allows no
-host-to-device copy. The per-pair scalar loops, the legacy viscous
-contacts and the sphere-box, box-ground and bowl groups of the JAX module
-are not ported yet.
+Each homogeneous pair GROUP is batched as [E, n] tensors (n pairs), with
+the per-pair constants (body-frame offsets, radii, gains, box corners) as
+[n] float32 tensors. Those constants are built once per device
+(``ground_pairs``, ``sphere_box_pairs``, ``box_corners``): a numpy array
+cannot multiply a CUDA tensor, a float64 one would promote every op it
+touches, and a CUDA-graph capture allows no host-to-device copy. What the
+JAX code reads as a Python float (a box's half extents, a gain shared by a
+group, the bowl's centre and radius) stays one, so the structural 0/1
+folding of ``scalar_algebra`` still removes launches. The per-pair scalar
+loops (``*_anchored_s``) and the legacy viscous contacts of the JAX module
+are not ported.
 """
 
 from __future__ import annotations
@@ -157,25 +161,60 @@ def stack_pair_params(pps, device) -> PairParams:
 
 
 @dataclass(frozen=True)
-class GroundPairs:
-    """The constants of the sphere-vs-ground group on one device."""
+class SpherePairs:
+    """The constants of one sphere pair group (spheres vs the ground, or vs
+    a box) on one device."""
 
+    idxs: tuple[int, ...]  # geom index of each pair: its slot after the group's base index
     bodies: tuple[int, ...]  # body of each geom
     offsets: torch.Tensor  # [n, 3] body-frame sphere centres
     radius: torch.Tensor  # [n]
     pp: PairParams  # [n] gains
 
 
-def ground_pairs(model: RigidBodyModel, pps, device) -> GroundPairs:
-    """Every sphere geom of ``model`` against the ground, with per-pair
-    gains ``pps`` (a list of PairParams), as float32 tensors on ``device``."""
-    geoms = model.geoms
-    return GroundPairs(
+def _sphere_pairs(model: RigidBodyModel, idxs, pps, device) -> SpherePairs:
+    geoms = [model.geoms[j] for j in idxs]
+    return SpherePairs(
+        idxs=tuple(idxs),
         bodies=tuple(g.body for g in geoms),
         offsets=torch.tensor(np.asarray([g.offset for g in geoms], np.float32), device=device),
         radius=torch.tensor(np.asarray([g.radius for g in geoms], np.float32), device=device),
         pp=stack_pair_params(pps, device),
     )
+
+
+def ground_pairs(model: RigidBodyModel, pps, device) -> SpherePairs:
+    """Every sphere geom of ``model`` against the ground, with per-pair
+    gains ``pps`` (a list of PairParams), as float32 tensors on ``device``."""
+    return _sphere_pairs(model, range(len(model.geoms)), pps, device)
+
+
+def sphere_box_pairs(model: RigidBodyModel, box_body: int, pps, device) -> SpherePairs:
+    """Every sphere geom not on ``box_body`` against that box, with the
+    gains ``pps[j]`` of geom j, as float32 tensors on ``device``."""
+    idxs = [j for j, g in enumerate(model.geoms) if g.body != box_body]
+    return _sphere_pairs(model, idxs, [pps[j] for j in idxs], device)
+
+
+_CORNER_SIGNS = [
+    (sx, sy, sz) for sx in (-1.0, 1.0) for sy in (-1.0, 1.0) for sz in (-1.0, 1.0)
+]
+
+
+def box_corners(half, device) -> torch.Tensor:
+    """[8, 3] float32 box-frame corners (``_CORNER_SIGNS`` × ``half``) of a
+    box of half extents ``half``: the constants of the box-ground and bowl
+    groups."""
+    signs = np.asarray(_CORNER_SIGNS, np.float32)
+    return torch.tensor(signs * np.asarray(half, np.float32), device=device)
+
+
+def add_fext_s(*fs):
+    """Elementwise sum of per-body 6-list force sets."""
+    out = fs[0]
+    for g in fs[1:]:
+        out = [sa.sv6_add(a, b) for a, b in zip(out, g)]
+    return out
 
 
 def _stackn(xs, ref):
@@ -184,11 +223,16 @@ def _stackn(xs, ref):
     return torch.stack([torch.full_like(ref, x) if isinstance(x, (int, float)) else x for x in xs], -1)
 
 
-def _gather_points(R_wb, p_wb, v, bodies, offsets):
+def _per_pair(xs):
+    """[E] scalars (or python floats) → [E, 1], to broadcast against a group's [n] constants."""
+    return [x if isinstance(x, float) else x[:, None] for x in xs]
+
+
+def _gather_points(R_wb, p_wb, v, bodies, offsets, ref):
     """World position/velocity of body-frame points, as v3s of [E, n] tensors.
 
-    offsets: [n, 3] constants."""
-    ref = p_wb[bodies[0]][2]
+    offsets: [n, 3] constants; ref: an [E] tensor (python-float entries of a
+    world-rooted link's pose are broadcast against it)."""
     R = [[_stackn([R_wb[b][r][c] for b in bodies], ref) for c in range(3)] for r in range(3)]
     p = [_stackn([p_wb[b][k] for b in bodies], ref) for k in range(3)]
     w = [_stackn([v[b][k] for b in bodies], ref) for k in range(3)]
@@ -196,7 +240,7 @@ def _gather_points(R_wb, p_wb, v, bodies, offsets):
     off = [offsets[:, k] for k in range(3)]
     pos = sa.v3_add(p, sa.m33_vec(R, off))
     vel = sa.m33_vec(R, sa.v3_add(vl, sa.v3_cross(w, off)))
-    return pos, vel, ref
+    return pos, vel
 
 
 def _gather_anchors(cs, base_idx, idxs, ref):
@@ -230,14 +274,20 @@ def _scatter_wrenches(f_ext, bodies, pos, force):
     return torque
 
 
-def ground_anchored_v(model, R_wb, p_wb, v, cs, cs_new, base_idx, pairs: GroundPairs):
+def _add_box_wrench(f_ext, box_body, torque, force, sign=1.0):
+    """f_ext[box] += sign · Σ over the group's pairs of [torque; force]."""
+    total = [t.sum(-1) for t in torque] + [f.sum(-1) for f in force]
+    f_ext[box_body] = sa.sv6_add(f_ext[box_body], total if sign > 0 else [-x for x in total])
+
+
+def ground_anchored_v(model, R_wb, p_wb, v, cs, cs_new, base_idx, pairs: SpherePairs):
     """All sphere geoms vs the ground (world-frame anchors). Reads pairs
     [base_idx, base_idx + n) of the flat contact state ``cs``, writes the
     updates into ``cs_new`` (a mutable list). Returns (per-body 6-lists
     f_ext, next free pair index)."""
-    n = len(pairs.bodies)
-    pos, vel, ref = _gather_points(R_wb, p_wb, v, pairs.bodies, pairs.offsets)
-    anchor, engaged = _gather_anchors(cs, base_idx, range(n), ref)
+    ref = cs[4 * base_idx]
+    pos, vel = _gather_points(R_wb, p_wb, v, pairs.bodies, pairs.offsets, ref)
+    anchor, engaged = _gather_anchors(cs, base_idx, pairs.idxs, ref)
     depth = pairs.radius - pos[2]
     dx = sa.v3_sub(pos, anchor)
     force, dxt_new, eng_new = _anchored_force_s(
@@ -245,5 +295,111 @@ def ground_anchored_v(model, R_wb, p_wb, v, cs, cs_new, base_idx, pairs: GroundP
     )
     f_ext = _zero_fext(model.nb)
     _scatter_wrenches(f_ext, pairs.bodies, pos, force)
-    _scatter_anchors(cs_new, base_idx, range(n), sa.v3_sub(pos, dxt_new), eng_new)
-    return f_ext, base_idx + n
+    _scatter_anchors(cs_new, base_idx, pairs.idxs, sa.v3_sub(pos, dxt_new), eng_new)
+    return f_ext, base_idx + len(pairs.idxs)
+
+
+def sphere_box_anchored_v(model, R_wb, p_wb, v, box_body, half, cs, cs_new, base_idx, pairs: SpherePairs):
+    """Spheres vs one oriented box at ``box_body`` (half extents ``half``,
+    python floats), with anchors stored in the BOX frame (so stick is right
+    while the box rotates: the in-hand reorientation case) and equal and
+    opposite wrenches on the box. A sphere centre inside the box pushes out
+    along the axis of the face it is nearest to, relative to the half
+    extents. Returns (f_ext, base_idx + number of geoms)."""
+    ref = cs[4 * (base_idx + pairs.idxs[0])]
+    pos, vel = _gather_points(R_wb, p_wb, v, pairs.bodies, pairs.offsets, ref)
+    Rb = [_per_pair(row) for row in R_wb[box_body]]
+    pb = _per_pair(p_wb[box_body])
+    vlin_box, omega_box = _per_pair(v[box_body][3:]), _per_pair(v[box_body][:3])
+    local = sa.m33_T_vec(Rb, sa.v3_sub(pos, pb))
+    closest = [torch.clamp(local[k], -half[k], half[k]) for k in range(3)]
+    delta = sa.v3_sub(local, closest)
+    dist = sa.v3_norm(delta) + 1e-9
+    abs_local = [torch.abs(x) for x in local]
+    inside = (abs_local[0] < half[0]) & (abs_local[1] < half[1]) & (abs_local[2] < half[2])
+    n_out = sa.v3_scale(delta, sa.srecip(dist))
+    r0, r1, r2 = (abs_local[k] / half[k] for k in range(3))
+    pick0 = (r0 >= r1) & (r0 >= r2)
+    pick1 = ~pick0 & (r1 >= r2)
+    pick2 = ~pick0 & ~pick1
+    n_in = [torch.sign(local[k]) * pick for k, pick in enumerate((pick0, pick1, pick2))]
+    normal_local = [torch.where(inside, n_in[k], n_out[k]) for k in range(3)]
+    pen = torch.minimum(
+        torch.minimum(half[0] - torch.abs(closest[0]), half[1] - torch.abs(closest[1])),
+        half[2] - torch.abs(closest[2]),
+    )
+    depth = torch.where(inside, pairs.radius + pen, pairs.radius - dist)
+
+    # relative velocity of the sphere centre w.r.t. the box surface point,
+    # in the box frame
+    box_pt_vel = sa.m33_vec(Rb, sa.v3_add(vlin_box, sa.v3_cross(omega_box, local)))
+    rel_vel_local = sa.m33_T_vec(Rb, sa.v3_sub(vel, box_pt_vel))
+
+    anchor, engaged = _gather_anchors(cs, base_idx, pairs.idxs, ref)
+    dx = sa.v3_sub(local, anchor)
+    force_l, dxt_new, eng_new = _anchored_force_s(
+        depth, normal_local, rel_vel_local, dx, engaged, pairs.pp
+    )
+    force = sa.m33_vec(Rb, force_l)
+    f_ext = _zero_fext(model.nb)
+    torque = _scatter_wrenches(f_ext, pairs.bodies, pos, force)
+    _add_box_wrench(f_ext, box_body, torque, force, sign=-1.0)
+    _scatter_anchors(cs_new, base_idx, pairs.idxs, sa.v3_sub(local, dxt_new), eng_new)
+    return f_ext, base_idx + len(model.geoms)
+
+
+def _box_corner_points(R_wb, p_wb, v, box_body, corners):
+    """World position/velocity of the 8 box corners, as v3s of [E, 8] tensors."""
+    Rb = [_per_pair(row) for row in R_wb[box_body]]
+    pb = _per_pair(p_wb[box_body])
+    omega, vlin = _per_pair(v[box_body][:3]), _per_pair(v[box_body][3:])
+    local = [corners[:, k] for k in range(3)]
+    pos = sa.v3_add(pb, sa.m33_vec(Rb, local))
+    vel = sa.m33_vec(Rb, sa.v3_add(vlin, sa.v3_cross(omega, local)))
+    return pos, vel
+
+
+def _box_corner_contacts(model, box_body, pos, vel, depth, normal, cs, cs_new, base_idx, pp):
+    """The anchored corner contacts of a box group (world-frame anchors), the
+    summed wrench on the box, and the 8 pair updates."""
+    ref = cs[4 * base_idx]
+    anchor, engaged = _gather_anchors(cs, base_idx, range(8), ref)
+    dx = sa.v3_sub(pos, anchor)
+    force, dxt_new, eng_new = _anchored_force_s(depth, normal, vel, dx, engaged, pp)
+    f_ext = _zero_fext(model.nb)
+    _add_box_wrench(f_ext, box_body, sa.v3_cross(pos, force), force)
+    _scatter_anchors(cs_new, base_idx, range(8), sa.v3_sub(pos, dxt_new), eng_new)
+    return f_ext, base_idx + 8
+
+
+def box_ground_anchored_v(model, R_wb, p_wb, v, box_body, corners, cs, cs_new, base_idx, pp: PairParams):
+    """The 8 corners of the box at ``box_body`` (``corners``: [8, 3] from
+    ``box_corners``) vs the ground plane, per-corner world-frame anchors.
+    One PairParams of python floats is shared by the corners."""
+    pos, vel = _box_corner_points(R_wb, p_wb, v, box_body, corners)
+    return _box_corner_contacts(model, box_body, pos, vel, -pos[2], [0.0, 0.0, 1.0], cs, cs_new, base_idx, pp)
+
+
+def bowl_anchored_v(model, R_wb, p_wb, v, box_body, corners, center, radius, cs, cs_new, base_idx,
+                    pp: PairParams):
+    """The box corners vs the INSIDE of a spherical bowl (the cradled palm:
+    fingertips can roll the cube instead of re-gripping it on a plane).
+    ``center`` [3] and ``radius`` are python floats; a corner at distance d
+    from the centre penetrates the shell by d − radius, with the normal
+    pointing back to the centre. Inside the rim (where the shell meets z = 0)
+    the shell is the support, outside it the plane. Same pair layout as
+    ``box_ground_anchored_v`` (8 pairs)."""
+    pos, vel = _box_corner_points(R_wb, p_wb, v, box_body, corners)
+    rel = [sa.ssub(pos[k], float(center[k])) for k in range(3)]
+    d = sa.v3_norm(rel) + 1e-9
+    depth_bowl = d - float(radius)
+    n_bowl = sa.v3_scale(rel, -torch.reciprocal(d))
+    r_rim2 = float(radius) ** 2 - float(center[2]) ** 2
+    in_rim = (pos[0] * pos[0] + pos[1] * pos[1]) < r_rim2
+    depth = torch.where(in_rim, depth_bowl, -pos[2])
+    normal = [
+        torch.where(in_rim, n_bowl[0], 0.0),
+        torch.where(in_rim, n_bowl[1], 0.0),
+        torch.where(in_rim, n_bowl[2], 1.0),
+    ]
+    return _box_corner_contacts(model, box_body, pos, vel, depth, normal, cs, cs_new, base_idx, pp)

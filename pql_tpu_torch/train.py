@@ -4,6 +4,10 @@
     python -m pql_tpu_torch.train algo=pql task=Cartpole max_step=2000000 --device=cuda
     python -m pql_tpu_torch.train algo=pql task=Ant num_envs=64 algo.batch_size=256 \
         algo.memory_size=100000 max_step=20000 --device=cpu
+    python -m pql_tpu_torch.train algo=pql_d task=AllegroHand num_envs=16384 \
+        algo.memory_size=2000000 max_time=600
+    python -m pql_tpu_torch.train algo=pql task=AllegroHand num_envs=64 algo.batch_size=256 \
+        algo.memory_size=100000 max_step=20000 --device=cpu
 
 Warm-up, then ``train_block`` calls until ``max_step`` total env steps (if
 set) or ``max_time`` seconds, with one JSON line of metrics on stdout every

@@ -34,7 +34,7 @@ from pql_tpu.parallel import make_mesh
 from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import make_config
 from pql_tpu_torch.utils.convert import load_pql_state, params_from_jax, pql_state_from_jax
-from test_torch_rigid import jax_reset_draws
+from test_torch_rigid import jax_reset_draws, jax_step_draws
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 SMALL = dict(num_envs=16, algo__batch_size=64, algo__memory_size=4096, algo__warm_up=4, algo__iters_per_call=1)
@@ -96,17 +96,20 @@ def _jax_tree(agent, s) -> dict:
 
 def _jax_draws(agent, cfg, rng) -> dict:
     """This iteration's draws, rebuilt as _fused_step_local makes them
-    (pql.py:372,391,533-536,596-597; one shard, so axis index 0)."""
+    (pql.py:372,391,533-536,596-597; one shard, so axis index 0), with the
+    per-step draws of a task that draws in its dynamics
+    (``VecEnv.step``'s ``fold_in(k_dyn, i)``, pql_tpu/envs/base.py:102-106)."""
     E, A, B = cfg.num_envs, agent.action_dim, cfg.algo.batch_size
     task = agent.env_local.task
     _, k_roll, k_crit, k_act = jax.random.split(rng, 4)
-    explore, reset = [], []
+    explore, reset, step = [], [], []
     k = k_roll
     for _ in range(cfg.algo.horizon_len):
         k, _k_a, k_n, k_e = jax.random.split(k, 4)
         explore.append(per_row_normal(k_n, (E, A), jnp.float32, 0))
-        _k_dyn, k_reset = jax.random.split(k_e)
+        k_dyn, k_reset = jax.random.split(k_e)
         reset.append(jax_reset_draws(task, agent.env_local.env_keys(k_reset, 0)))
+        step.append(jax_step_draws(task, agent.env_local.env_keys(k_dyn, 0)))
 
     def sample_idx(k_s):
         k_slot, k_env = jax.random.split(k_s)
@@ -125,11 +128,14 @@ def _jax_draws(agent, cfg, rng) -> dict:
         a_slot.append(slot)
         a_env.append(env)
     t = lambda xs, dtype=None: torch.from_numpy(np.array(jnp.stack(xs))).to(dtype)  # noqa: E731
-    return dict(
+    draws = dict(
         explore_normal=t(explore), reset=torch.stack(reset),
         critic_slot=t(c_slot, torch.int64), critic_env=t(c_env, torch.int64), target_normal=t(t_normal),
         actor_slot=t(a_slot, torch.int64), actor_env=t(a_env, torch.int64),
     )
+    if step[0] is not None:  # the task draws in its dynamics
+        draws["step"] = torch.stack(step)
+    return draws
 
 
 def _assert_params(module, jax_nested, what, max_step):
@@ -224,11 +230,12 @@ def test_unported_options_fail_loudly(override):
 
 def test_port_imports_no_jax():
     """A fresh interpreter importing the port (its entry point, the physics
-    engine and the rigid tasks) loads neither JAX, flax, optax nor the JAX
-    package."""
+    engine, the rigid and the hand tasks) loads neither JAX, flax, optax nor
+    the JAX package."""
     code = (
         "import sys, pql_tpu_torch, pql_tpu_torch.train, pql_tpu_torch.algos.pql, pql_tpu_torch.utils.convert\n"
         "import pql_tpu_torch.physics, pql_tpu_torch.physics.contact, pql_tpu_torch.envs.rigid\n"
+        "import pql_tpu_torch.envs.hand\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pql_tpu')]\n"
         "assert not bad, bad\n"
     )

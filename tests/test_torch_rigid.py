@@ -61,6 +61,9 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+HAND_TASKS = ("AllegroHand", "ShadowHand")
+
+
 def jax_reset_draws(task, keys) -> torch.Tensor:
     """The port's ``draw_reset`` layout filled with the numbers the JAX
     ``task.init_state`` draws at each of ``keys``: the JAX package's
@@ -69,6 +72,14 @@ def jax_reset_draws(task, keys) -> torch.Tensor:
     if name == "Cartpole":
         fresh = jax.vmap(task.init_state)(keys)
         return torch.from_numpy(np.array(jnp.stack([fresh[f] for f in ("x", "x_dot", "theta", "theta_dot")], -1)))
+    if name in HAND_TASKS:  # pql_tpu/envs/hand.py:288-302: finger offsets, cube quat, target quat
+
+        def hand(key):
+            k1, k2, k3 = jax.random.split(key, 3)
+            return jnp.concatenate([jax.random.uniform(k1, (task.n_dof,), jnp.float32, -0.1, 0.1),
+                                    jax.random.uniform(k2, (3,)), jax.random.uniform(k3, (3,))])
+
+        return torch.from_numpy(np.array(jax.vmap(hand)(keys)))
     m, w = task.model, _HINGE_NOISE[name]
 
     def one(key):
@@ -82,6 +93,16 @@ def jax_reset_draws(task, keys) -> torch.Tensor:
         return jnp.concatenate(parts)
 
     return torch.from_numpy(np.array(jax.vmap(one)(keys)))
+
+
+def jax_step_draws(task, keys) -> torch.Tensor | None:
+    """The port's ``draw_step`` layout filled with the numbers the JAX
+    ``task.dynamics`` draws from each env's dynamics key (the hand's
+    ``_rand_quat(rng)``, pql_tpu/envs/hand.py:376); None for a task that
+    draws nothing in its dynamics."""
+    if type(task).__name__ not in HAND_TASKS:
+        return None
+    return torch.from_numpy(np.array(jax.vmap(lambda k: jax.random.uniform(k, (3,)))(keys)))
 
 
 def _np_tree(x):
