@@ -41,10 +41,29 @@ line each:
    8192, memory 5e6: ring 610 × 8192 × 124 fp32), as ant_main_path;
 10. allegro_pqld_main_path — ``algo=pql_d task=AllegroHand num_envs=16384
    algo.memory_size=2000000`` (ring 122 × 16384 × 124 fp32, 51 atoms), as
-   ant_main_path, with ``c51_td_target`` launched 8 times per iteration.
+   ant_main_path, with ``c51_td_target`` launched 8 times per iteration;
+11. entry_path — the entry point, ``pql_tpu_torch.train.main``, with
+   ``algo=pql_d task=Cartpole num_envs=4096`` at full width for
+   ``ENTRY_CALLS`` × 4 iterations, with evals, full checkpoints and a best
+   model into a directory under ``build/``: the eval records at the
+   predicted iterations, the files, ``c51_td_target`` 8 launches per
+   iteration; ms per eval call, checkpoint bytes, save and load seconds, and
+   ms/iter of the logged intervals with and without an eval or a save;
+12. resume_check — the same configuration: warm-up, ``RESUME_K``
+   iterations, a full checkpoint, ``RESUME_M`` more; a fresh agent of
+   another seed resumes and runs the same ``RESUME_M``: bitwise equal in
+   every tensor (params, target, optimizer moments, replay, generator,
+   counters); then ``set_ratios(16, 2)`` on both and one iteration each:
+   counters 16:8, ``c51_td_target`` 16 launches per iteration, still bitwise;
+13. sampling_options — two iterations from one state with one set of
+   draws with ``algo.prefetch_batches`` off and on: bitwise equal; then a few
+   iterations with ``algo.sample_slots=8``: finite losses, exact counters;
+14. learning_gate — the JAX package's Cartpole gate (tests/test_learning.py:
+   37-59, ``LEARNING_GATE``): PQL seed 0 must reach eval return > 250 after
+   150 iterations; seeds 1 and 2 and PQL-D seed 0 are printed, unchecked.
 
-Each main path resets the kernels' launch counts just before it runs and
-reads them just after. Then the ``{"kernels": [...]}`` line, the nvidia-smi
+Each main path, and each of phases 11, 12 and 14, resets the kernels'
+launch counts just before it drives the port and reads them just after. Then the ``{"kernels": [...]}`` line, the nvidia-smi
 line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits nonzero and prints no result. It imports nothing of JAX.
@@ -53,6 +72,7 @@ exits nonzero and prints no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -103,6 +123,20 @@ HAND_WARM_ITERS = 2  # untimed iterations after the warm-up
 HAND_BLOCKS = 3  # timed blocks of HAND_BLOCK_ITERS iterations
 HAND_BLOCK_ITERS = 3
 HAND_PROFILED_ITERS = 2
+ENTRY_ARGV = ("algo=pql_d", "task=Cartpole", "num_envs=4096")
+ENTRY_CALLS = 8  # train_block calls of iters_per_call = 4 iterations
+ENTRY_EVAL_FREQ = 8  # evals at iterations 8, 16, 24, 32
+ENTRY_CKPT_FREQ = 12  # full checkpoints at iterations 12, 24
+EVAL_TIMINGS = 3  # timed eval calls after the entry run
+RESUME_K, RESUME_M = 3, 3  # iterations before the checkpoint and after it
+SLOT_ITERS = 3  # iterations with algo.sample_slots=8
+# the JAX package's gate (tests/test_learning.py:37-59): eval return > 250
+# after warm-up and 150 iterations of PQL on Cartpole from seed 0
+LEARNING_GATE = dict(task="Cartpole", num_envs=256, eval_num_envs=32, algo__batch_size=1024,
+                     algo__memory_size=200_000, algo__warm_up=16, logging__mode="off")
+LEARNING_ITERS = 150
+LEARNING_THRESHOLD = 250.0
+SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
 
 def emit(obj) -> None:
@@ -693,6 +727,296 @@ def rigid_main_path(dev, smi: str, argv: list[str], warm_iters: int, blocks: int
     )
 
 
+def state_diffs(a, b) -> list[str]:
+    """Paths of the entries of two PQL states' ``state_dict``s that are not
+    bitwise equal."""
+    from pql_tpu_torch.utils.checkpoint import state_dict
+
+    import torch
+
+    out = []
+
+    def walk(x, y, path):
+        if isinstance(x, dict):
+            if set(x) != set(y):
+                out.append(path)
+                return
+            for k in x:
+                walk(x[k], y[k], f"{path}.{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{path}[{i}]")
+        elif isinstance(x, torch.Tensor):
+            if x.shape != y.shape or not torch.equal(x, y.to(x.device)):
+                out.append(path)
+        elif x != y:
+            out.append(path)
+
+    walk(state_dict(a), state_dict(b), "state")
+    return out
+
+
+def copy_state(src, dst):
+    """``dst`` (a fresh state of the same config) made a deep copy of ``src``,
+    through one ``torch.save`` in memory."""
+    import io
+
+    import torch
+    from pql_tpu_torch.utils import checkpoint
+
+    buf = io.BytesIO()
+    torch.save(checkpoint.state_dict(src), buf)
+    buf.seek(0)
+    return checkpoint.load_state_dict(dst, torch.load(buf, map_location="cpu", weights_only=True))
+
+
+def entry_path(dev, smi: str) -> dict:
+    """``pql_tpu_torch.train.main`` at full width, with evals, full
+    checkpoints and a best model in ``SMOKE_DIR/entry``; then the eval's and
+    the checkpoint's costs at that width."""
+    import shutil
+    import statistics
+    from unittest import mock
+
+    import torch
+    from pql_tpu_torch import train
+    from pql_tpu_torch.algos.pql import PQL
+    from pql_tpu_torch.cfg import parse_cli
+    from pql_tpu_torch.envs import make_eval_env
+    from pql_tpu_torch.ops import kernels
+    from pql_tpu_torch.utils import checkpoint
+    from pql_tpu_torch.utils.evaluator import Evaluator
+
+    root = os.path.join(SMOKE_DIR, "entry")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = parse_cli(list(ENTRY_ARGV))
+    ipc, warm, E = cfg.algo.iters_per_call, cfg.algo.warm_up, cfg.num_envs
+    iters = ENTRY_CALLS * ipc
+    argv = list(ENTRY_ARGV) + [
+        f"max_step={(warm + (iters - ipc)) * E}", f"algo.eval_freq={ENTRY_EVAL_FREQ}", f"algo.log_freq={ipc}",
+        f"checkpoint_dir={root}/ckpt", f"checkpoint_freq={ENTRY_CKPT_FREQ}", f"logging.out_dir={root}/runs",
+        "logging.run_name=entry", "logging.console=false", f"--device={dev}",
+    ]
+    saves = []
+    save = train.save_checkpoint
+
+    def timed_save(path, state):
+        t1 = time.perf_counter()
+        save(path, state)
+        saves.append(time.perf_counter() - t1)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(train, "save_checkpoint", timed_save):
+        train.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    run_dir = os.path.join(root, "runs", "entry")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    it_of = lambda step: (step // E - warm) // cfg.algo.horizon_len  # noqa: E731
+    eval_its = [it for it in range(ipc, iters + 1, ipc) if it // ENTRY_EVAL_FREQ > (it - ipc) // ENTRY_EVAL_FREQ]
+    ckpt_its = [it for it in range(ipc, iters + 1, ipc) if it // ENTRY_CKPT_FREQ > (it - ipc) // ENTRY_CKPT_FREQ]
+    evals = [r for r in recs if "eval/return" in r]
+    check([it_of(r["step"]) for r in evals] == eval_its,
+          f"eval records at iterations {[it_of(r['step']) for r in evals]}, predicted {eval_its}")
+    check(all(math.isfinite(r["eval/return"]) and math.isfinite(r["eval/episode_length"]) for r in evals),
+          "non-finite eval record")
+    check(len(saves) == len(ckpt_its) == 2, f"{len(saves)} checkpoints, predicted at iterations {ckpt_its}")
+    ckpt_file = os.path.join(root, "ckpt", "state", checkpoint.STATE_FILE)
+    best = os.path.join(run_dir, "best_model")
+    check(os.path.exists(ckpt_file) and os.path.exists(os.path.join(best, checkpoint.SNAPSHOT_FILE)),
+          "the checkpoint or the best model is missing")
+    ckpt_bytes = os.path.getsize(ckpt_file)
+    check(launches["c51_td_target"] == 8 * iters,
+          f"c51_td_target launched {launches['c51_td_target']} times in {iters} iterations of the entry point")
+    # ms/iter of each logged interval (log_freq = iters_per_call: one train_block);
+    # an interval holds the eval dispatch or the save made after the log before it
+    speed = [r for r in recs if "speed/env_steps_per_s" in r]
+    ms = {it_of(r["step"]): 1e3 * E / r["speed/env_steps_per_s"] for r in speed}
+    busy = set(eval_its) | set(ckpt_its)
+    clean = [v for it, v in ms.items() if it > ipc and it - ipc not in busy]
+    with_eval = [v for it, v in ms.items() if it - ipc in eval_its]
+    with_save = [v for it, v in ms.items() if it - ipc in ckpt_its and it - ipc not in eval_its]
+
+    agent = PQL(cfg, device=dev)
+    state = agent.init()
+    t1 = time.perf_counter()
+    checkpoint.load_checkpoint(os.path.join(root, "ckpt", "state"), state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    check(state.critic_update_count == 8 * ckpt_its[-1], "the loaded checkpoint's counters")
+    checkpoint.restore_into_state(state, checkpoint.load_model_snapshot(best))
+    ev = Evaluator(cfg, make_eval_env(cfg), agent.eval_actor_apply, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    eval_ms, enqueue_ms = [], []
+    for _ in range(EVAL_TIMINGS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        handle = ev.eval_policy_async(state.actor, state.obs_rms, gen)
+        enqueue_ms.append(1e3 * (time.perf_counter() - t1))
+        out = Evaluator.resolve(handle)
+        eval_ms.append(1e3 * (time.perf_counter() - t1))
+        check(math.isfinite(out["eval/return"]), "non-finite eval return")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(
+        config=" ".join(argv[:3]) + f" (batch {cfg.algo.batch_size}, memory {cfg.algo.memory_size:g}, 51 atoms; "
+                                    f"{ENTRY_CALLS} train_block calls of {ipc})",
+        card=smi, wall_s_of_main=wall_s, iterations=iters, eval_iterations=eval_its, checkpoint_iterations=ckpt_its,
+        eval_returns=[r["eval/return"] for r in evals], eval_episode_lengths=[r["eval/episode_length"] for r in evals],
+        launches=launches, checkpoint_bytes=ckpt_bytes, checkpoint_save_s=saves,
+        checkpoint_load_s=load_s, eval_envs=cfg.eval_num_envs, eval_steps=ev.env.max_episode_length,
+        eval_ms_per_call=statistics.median(eval_ms), eval_ms_per_call_timings=eval_ms,
+        eval_enqueue_ms=statistics.median(enqueue_ms),
+        ms_per_iter_by_interval=ms, ms_per_iter_without_eval_or_save=statistics.median(clean),
+        ms_per_iter_after_eval=statistics.median(with_eval), ms_per_iter_after_save=statistics.median(with_save),
+        ms_per_iter_all=statistics.mean(v for it, v in ms.items() if it > ipc),
+    )
+
+
+def resume_check(dev) -> dict:
+    """Kill and resume at full width, bitwise; then ``set_ratios(16, 2)``."""
+    import shutil
+
+    import torch
+    from pql_tpu_torch.algos.pql import PQL
+    from pql_tpu_torch.cfg import parse_cli
+    from pql_tpu_torch.ops import kernels
+    from pql_tpu_torch.utils import checkpoint
+
+    path = os.path.join(SMOKE_DIR, "resume", "state")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    kernels.reset_launches()
+    agent = PQL(parse_cli(list(ENTRY_ARGV)), device=dev)
+    s, _ = agent.warmup(agent.init())
+    for _ in range(RESUME_K):
+        s, _ = agent.train_iter(s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(path, s)
+    save_s = time.perf_counter() - t0
+    for _ in range(RESUME_M):
+        s, _ = agent.train_iter(s)
+
+    agent2 = PQL(parse_cli(list(ENTRY_ARGV) + ["seed=7"]), device=dev)
+    s2 = agent2.init()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.load_checkpoint(path, s2)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for _ in range(RESUME_M):
+        s2, _ = agent2.train_iter(s2)
+    diffs = state_diffs(s, s2)
+    check(not diffs, f"the resumed run differs from the uninterrupted one in {diffs[:8]}")
+    launches = dict(kernels.LAUNCHES)
+    its = 2 * (RESUME_K + RESUME_M) - RESUME_K
+    check(launches["c51_td_target"] == 8 * its, f"c51_td_target launched {launches['c51_td_target']} in {its} iterations")
+
+    counts = [(s.critic_update_count, s.actor_update_count), (s2.critic_update_count, s2.actor_update_count)]
+    kernels.reset_launches()
+    for a in (agent, agent2):
+        a.set_ratios(16, 2)
+    s, _ = agent.train_iter(s)
+    s2, _ = agent2.train_iter(s2)
+    ratio_launches = kernels.LAUNCHES["c51_td_target"]
+    kernels.LAUNCHES["c51_td_target"] += launches["c51_td_target"]  # the path's total
+    for (c0, a0), st in zip(counts, (s, s2)):
+        check((st.critic_update_count - c0, st.actor_update_count - a0) == (16, 8),
+              "counters after set_ratios(16, 2) did not advance 16:8")
+    check(ratio_launches == 2 * 16, f"c51_td_target launched {ratio_launches} times in 2 iterations at 16:8")
+    diffs = state_diffs(s, s2)
+    check(not diffs, f"after set_ratios the runs differ in {diffs[:8]}")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    return dict(config=" ".join(ENTRY_ARGV), iterations_before_save=RESUME_K, iterations_after=RESUME_M,
+                bitwise_equal=True, save_s=save_s, load_s=load_s,
+                counters_after=[s.critic_update_count, s.actor_update_count],
+                c51_launches_per_iter_after_set_ratios=ratio_launches // 2, launches=dict(kernels.LAUNCHES))
+
+
+def sampling_options(dev) -> dict:
+    """``prefetch_batches`` bitwise at full width; ``sample_slots=8`` trains."""
+    import torch
+    from pql_tpu_torch.algos.pql import PQL
+    from pql_tpu_torch.cfg import parse_cli
+
+    base = PQL(parse_cli(list(ENTRY_ARGV)), device=dev)
+    s0, _ = base.warmup(base.init())
+    gen = torch.Generator(device=dev).manual_seed(5)
+    draws = [base.draw_iteration(gen) for _ in range(2)]
+    runs = {}
+    for prefetch in ("false", "true"):
+        agent = PQL(parse_cli(list(ENTRY_ARGV) + [f"algo.prefetch_batches={prefetch}"]), device=dev)
+        st = copy_state(s0, agent.init())
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for d in draws:
+            st, m = agent.train_iter(st, d)
+            losses.append(torch.stack([m["train/critic_loss"], m["train/actor_loss"]]))
+        torch.cuda.synchronize()
+        runs[prefetch] = (st, torch.stack(losses), 1e3 * (time.perf_counter() - t0) / len(draws))
+    diffs = state_diffs(runs["false"][0], runs["true"][0])
+    check(not diffs and torch.equal(runs["false"][1], runs["true"][1]),
+          f"prefetch_batches differs from per-update gathers in {diffs[:8]}")
+    prefetch_ms = {p: r[2] for p, r in runs.items()}  # two iterations each: not a comparison
+    del runs, s0, base
+
+    agent = PQL(parse_cli(list(ENTRY_ARGV) + ["algo.sample_slots=8"]), device=dev)
+    check(agent.sample_slots == 8, "sample_slots=8 did not select the window")
+    st, _ = agent.warmup(agent.init())
+    losses = []
+    for _ in range(SLOT_ITERS):
+        st, m = agent.train_iter(st)
+        losses.append(torch.stack([m["train/critic_loss"], m["train/actor_loss"]]))
+    lo = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(lo).all()), "non-finite loss with sample_slots=8")
+    check((st.critic_update_count, st.actor_update_count) == (8 * SLOT_ITERS, 4 * SLOT_ITERS),
+          "counters with sample_slots=8")
+    return dict(config=" ".join(ENTRY_ARGV), prefetch_bitwise_equal=True, prefetch_iterations=len(draws),
+                ms_per_iter_by_prefetch=prefetch_ms, sample_slots=8, sample_slots_iterations=SLOT_ITERS, sample_slots_losses=lo.tolist())
+
+
+def learning_gate_return(algo: str, seed: int, device, iters: int = LEARNING_ITERS) -> float:
+    """Eval return of the JAX package's Cartpole gate configuration
+    (``LEARNING_GATE``) after warm-up and ``iters`` iterations from ``seed``,
+    by the port's Evaluator with draws from seed 123."""
+    import torch
+    from pql_tpu_torch.algos.pql import PQL
+    from pql_tpu_torch.cfg import make_config
+    from pql_tpu_torch.envs import make_eval_env
+    from pql_tpu_torch.utils.evaluator import Evaluator
+
+    cfg = make_config(algo, seed=seed, **LEARNING_GATE)
+    agent = PQL(cfg, device=device)
+    state, _ = agent.warmup(agent.init())
+    for _ in range(iters):
+        state, _ = agent.train_iter(state)
+    ev = Evaluator(cfg, make_eval_env(cfg), agent.eval_actor_apply, device)
+    return ev.eval_policy(state.actor, state.obs_rms, torch.Generator(device=device).manual_seed(123))["eval/return"]
+
+
+def learning_gate(dev) -> dict:
+    """PQL seed 0 must pass the gate; seeds 1-2 and PQL-D seed 0 are printed."""
+    from pql_tpu_torch.ops import kernels
+
+    out, launches = {}, {}
+    for algo, seed in (("pql", 0), ("pql", 1), ("pql", 2), ("pql_d", 0)):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        ret = learning_gate_return(algo, seed, dev)
+        out[f"{algo} seed {seed}"] = dict(eval_return=ret, wall_s=time.perf_counter() - t0)
+        if algo == "pql_d":
+            launches = dict(kernels.LAUNCHES)
+            check(launches["c51_td_target"] == 8 * LEARNING_ITERS, "c51_td_target launches in the PQL-D run")
+    check(out["pql seed 0"]["eval_return"] > LEARNING_THRESHOLD,
+          f"PQL failed the Cartpole gate: eval return {out['pql seed 0']['eval_return']} <= {LEARNING_THRESHOLD}")
+    return dict(config=LEARNING_GATE, iterations=LEARNING_ITERS, threshold=LEARNING_THRESHOLD, checked="pql seed 0",
+                runs=out, launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -734,8 +1058,19 @@ def main() -> int:
     allegro_d, s = timed(rigid_main_path, dev, smi, ["algo=pql_d", "task=AllegroHand", "num_envs=16384",
                                                      "algo.memory_size=2000000"], *hand_depth)
     emit(dict(phase="allegro_pqld_main_path", wall_s=s, **allegro_d))
+    entry, s = timed(entry_path, dev, smi)
+    emit(dict(phase="entry_path", wall_s=s, **entry))
+    resume, s = timed(resume_check, dev)
+    emit(dict(phase="resume_check", wall_s=s, **resume))
+    sampling, s = timed(sampling_options, dev)
+    emit(dict(phase="sampling_options", wall_s=s, **sampling))
+    gate, s = timed(learning_gate, dev)
+    emit(dict(phase="learning_gate", card=smi, wall_s=s, **gate))
 
-    by_path = {"pql_d Cartpole@4096": main["launches"], "pql_d AllegroHand@16384": allegro_d["launches"]}
+    by_path = {"pql_d Cartpole@4096": main["launches"], "pql_d AllegroHand@16384": allegro_d["launches"],
+               "pql_d Cartpole@4096 entry point": entry["launches"],
+               "pql_d Cartpole@4096 resume check": resume["launches"],
+               "pql_d Cartpole@256 learning run": gate["launches"]}
     emit({"kernels": [
         dict(name=c["name"], route="cuda", source=kernels.KERNELS[c["name"]]["source"],
              replaces=kernels.KERNELS[c["name"]]["replaces"],

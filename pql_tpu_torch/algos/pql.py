@@ -7,7 +7,11 @@ One iteration, exactly as the JAX package's fused step orders it:
   ``VecEnv.step`` with auto-reset; episode accounting into the trackers;
 - n-step staging, then one ring-replay write; ``env_steps`` counts steps
   per env;
-- critic phase, ``critic_sample_ratio × horizon`` updates: sample a batch;
+- critic phase, ``critic_sample_ratio × horizon`` updates: sample a batch
+  (iid pairs, or the slot-stratified window with ``algo.sample_slots``;
+  with ``algo.prefetch_batches`` every batch of the phase in one row
+  gather before it, bitwise the same batches, since the ring is static
+  through the learner phases);
   target from the live actor (as it stood before this iteration's actor
   phase) plus smoothing noise, evaluated on ``critic_target`` as it stood
   when the phase began (the JAX package's semantics); for PQL-D
@@ -20,7 +24,8 @@ One iteration, exactly as the JAX package's fused step orders it:
   parameters receive no gradient.
 
 Warm-up is one call of ``warm_up`` steps with uniform actions and no
-updates. ``iters_per_call`` is a Python loop.
+updates. ``iters_per_call`` is a Python loop. ``set_ratios`` changes the
+update counts between iterations (the adaptive ratio controller's lever).
 
 Every random number of one call comes from ``draw_iteration``; ``warmup``
 and ``train_iter`` take such a dict (the parity tests hand in the JAX
@@ -45,7 +50,8 @@ from pql_tpu_torch.ops.running_norm import RunningMeanStd
 from pql_tpu_torch.ops.schedules import schedule_value
 from pql_tpu_torch.ops.soft_update import soft_update
 from pql_tpu_torch.replay import NStepState, ReplayBuffer, create_nstep, nstep_scan, replay_slots
-from pql_tpu_torch.replay.buffer import draw_sample_indices
+from pql_tpu_torch.replay.buffer import draw_sample_indices, draw_window_indices, window_fits
+from pql_tpu_torch.replay.nstep import FIELDS
 from pql_tpu_torch.utils.trackers import Tracker
 
 
@@ -77,9 +83,6 @@ def check_supported(cfg) -> None:
     unsupported = {
         "algo.name": (cfg.algo.name, "PQL"),
         "num_devices": (cfg.num_devices or 1, 1),
-        "algo.adaptive_ratios": (cfg.algo.adaptive_ratios, False),
-        "algo.sample_slots": (cfg.algo.sample_slots, 0),
-        "algo.prefetch_batches": (cfg.algo.prefetch_batches, False),
     }
     for key, (value, supported) in unsupported.items():
         if value != supported:
@@ -99,11 +102,36 @@ class PQL:
         self.num_envs = cfg.num_envs
         self.obs_dim = self.env.obs_dim
         self.action_dim = self.env.action_dim
-        self.n_critic = int(cfg.algo.critic_sample_ratio) * cfg.algo.horizon_len
-        self.n_actor = max(int(cfg.algo.critic_sample_ratio) // int(cfg.algo.critic_actor_ratio), 1)
-        self.n_actor *= cfg.algo.horizon_len
+        self.set_ratios(cfg.algo.critic_sample_ratio, cfg.algo.critic_actor_ratio)
+        # the slot-stratified window, where it fits (else iid pairs, as buffer.py:219)
+        self.sample_slots = cfg.algo.sample_slots if window_fits(
+            cfg.algo.sample_slots, cfg.algo.batch_size, cfg.num_envs) else 0
         self.iters_per_call = max(int(cfg.algo.iters_per_call), 1)
         self._target_copy: nn.Module | None = None
+
+    def set_ratios(self, critic_sample_ratio: int, critic_actor_ratio: int) -> None:
+        """Update ratios from the next iteration on (pql_tpu/algos/pql.py:268-293):
+        ``n_critic`` = critic_sample_ratio × horizon_len critic updates and
+        ``n_actor`` = max(critic_sample_ratio // critic_actor_ratio, 1) ×
+        horizon_len actor updates per iteration. Params, optimizer, replay,
+        generator and counters carry over. ``draw_iteration`` sizes its batch
+        draws from these counts, so a draw dict made before a change does not
+        fit an iteration after it."""
+        self.cfg.algo.critic_sample_ratio = int(critic_sample_ratio)
+        self.cfg.algo.critic_actor_ratio = int(critic_actor_ratio)
+        horizon = self.cfg.algo.horizon_len
+        self.n_critic = int(critic_sample_ratio) * horizon
+        self.n_actor = max(int(critic_sample_ratio) // int(critic_actor_ratio), 1) * horizon
+
+    def precompile_ratio_ladder(self, state: PQLState, factor: int = 2, max_ratio: int = 32) -> list[int]:
+        """The escalation rungs (critic_sample_ratio × factor^k <= max_ratio)
+        that the JAX package compiles ahead of time (pql_tpu/algos/pql.py:295-321).
+        Eager PyTorch compiles nothing, so this only returns them."""
+        rungs, rung = [], int(self.cfg.algo.critic_sample_ratio) * factor
+        while rung <= max_ratio:
+            rungs.append(rung)
+            rung *= factor
+        return rungs
 
     # ---------------------------------------------------------------- init
 
@@ -160,7 +188,11 @@ class PQL:
           draws are unchanged);
         - ``critic_slot`` / ``critic_env`` [n_critic, B]: raw slot draws on
           [0, 2^30) and env indices; ``target_normal`` [n_critic, B, A];
-        - ``actor_slot`` / ``actor_env`` [n_actor, B].
+        - ``actor_slot`` / ``actor_env`` [n_actor, B];
+        - with the slot-stratified window (``sample_slots`` = n) in place of
+          the slot and env draws: ``critic_win_slot`` [n_critic, n] raw slot
+          draws and ``critic_win_off`` [n_critic] env offsets on [0, E), and
+          ``actor_win_slot`` / ``actor_win_off``.
         """
         cfg, E, A = self.cfg, self.num_envs, self.action_dim
         horizon = cfg.algo.warm_up if random else cfg.algo.horizon_len
@@ -175,9 +207,14 @@ class PQL:
             d["step"] = torch.stack([task.draw_step(gen, E) for _ in range(horizon)])
         if not random:
             B = cfg.algo.batch_size
-            d["critic_slot"], d["critic_env"] = draw_sample_indices(gen, self.n_critic, B, E)
-            d["target_normal"] = torch.randn(self.n_critic, B, A, generator=gen, device=gen.device)
-            d["actor_slot"], d["actor_env"] = draw_sample_indices(gen, self.n_actor, B, E)
+            for phase, count in (("critic", self.n_critic), ("actor", self.n_actor)):
+                if self.sample_slots:
+                    idx = draw_window_indices(gen, count, self.sample_slots, E)
+                    d[f"{phase}_win_slot"], d[f"{phase}_win_off"] = idx
+                else:
+                    d[f"{phase}_slot"], d[f"{phase}_env"] = draw_sample_indices(gen, count, B, E)
+                if phase == "critic":
+                    d["target_normal"] = torch.randn(self.n_critic, B, A, generator=gen, device=gen.device)
         return {k: v.to(self.device) for k, v in d.items()}
 
     # ----------------------------------------------------------- public API
@@ -278,6 +315,25 @@ class PQL:
     def _normalize_clip(self, state: PQLState, x: torch.Tensor) -> torch.Tensor:
         return state.obs_rms.normalize_clip(x) if self.cfg.algo.obs_norm else x
 
+    def _phase_batches(self, state: PQLState, draws: dict, phase: str, count: int, fields):
+        """The ``count`` batches of a learner phase, one per update: each a
+        row gather at its update, or all of them in one gather now with
+        ``prefetch_batches`` (the same rows: the ring does not change during
+        the learner phases)."""
+        replay = state.replay
+        if f"{phase}_win_slot" in draws:
+            index = replay.window_index(draws[f"{phase}_win_slot"], draws[f"{phase}_win_off"],
+                                        self.cfg.algo.batch_size)
+        else:
+            index = replay.sample_index(draws[f"{phase}_slot"], draws[f"{phase}_env"])
+        if index.shape[0] != count:
+            raise ValueError(f"{index.shape[0]} {phase} batches drawn for {count} updates: "
+                             "draws made before a set_ratios do not fit the iterations after it")
+        if self.cfg.algo.prefetch_batches:
+            rows = replay.rows(index)
+            return (replay.split(r, fields) for r in rows)
+        return (replay.split(replay.rows(i), fields) for i in index)
+
     def _critic_phase(self, state: PQLState, draws: dict) -> torch.Tensor:
         cfg = self.cfg
         gamma_n = cfg.algo.gamma ** cfg.algo.nstep
@@ -289,8 +345,7 @@ class PQL:
         # state.critic_target and are seen from the next iteration on.
         target_net = self._frozen_target(state)
         losses = []
-        for u in range(self.n_critic):
-            batch = state.replay.sample(draws["critic_slot"][u], draws["critic_env"][u])
+        for u, batch in enumerate(self._phase_batches(state, draws, "critic", self.n_critic, FIELDS)):
             obs_n = self._normalize_clip(state, batch["obs"])
             next_obs_n = self._normalize_clip(state, batch["next_obs"])
             reward, done = batch["reward"].contiguous(), batch["done"].contiguous()
@@ -329,8 +384,7 @@ class PQL:
         cfg = self.cfg
         params = list(state.actor.parameters())
         losses = []
-        for u in range(self.n_actor):
-            batch = state.replay.sample(draws["actor_slot"][u], draws["actor_env"][u], fields=("obs",))
+        for batch in self._phase_batches(state, draws, "actor", self.n_actor, ("obs",)):
             obs_n = self._normalize_clip(state, batch["obs"])
             # grads w.r.t. the actor only: the critic's parameters get none
             loss = -torch.mean(state.critic.q_min(obs_n, state.actor(obs_n)))
@@ -339,3 +393,10 @@ class PQL:
             losses.append(loss.detach())
         state.actor_update_count += self.n_actor
         return torch.stack(losses).mean()
+
+    # ------------------------------------------------------------ eval hook
+
+    @staticmethod
+    def eval_actor_apply(actor: nn.Module, obs_n: torch.Tensor) -> torch.Tensor:
+        """The deterministic action for the evaluator (pql_tpu/algos/pql.py:640-642)."""
+        return actor(obs_n)

@@ -3,6 +3,7 @@
 from pql_tpu_torch.cfg.config import (
     AlgoConfig,
     Config,
+    LoggingConfig,
     NoiseConfig,
     algo_config,
     make_config,
@@ -13,6 +14,7 @@ from pql_tpu_torch.cfg.config import (
 __all__ = [
     "AlgoConfig",
     "Config",
+    "LoggingConfig",
     "NoiseConfig",
     "algo_config",
     "make_config",

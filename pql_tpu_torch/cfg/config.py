@@ -32,6 +32,17 @@ class NoiseConfig:
 
 
 @dataclass
+class LoggingConfig:
+    """Logging sinks (reference pql/cfg/logging/default.yaml)."""
+
+    mode: str = "local"  # 'local' (JSONL+console) | 'wandb' (if installed) | 'off'
+    project: str = "pql_tpu"
+    run_name: str | None = None
+    out_dir: str = "runs"
+    console: bool = True
+
+
+@dataclass
 class AlgoConfig:
     """PQL / PQL-D hyperparameters (actor_critic.yaml + pql_algo.yaml)."""
 
@@ -45,6 +56,7 @@ class AlgoConfig:
     obs_norm: bool = True
     handle_timeout: bool = True
     log_freq: int = 2
+    eval_freq: int = 200
     horizon_len: int = 1
     memory_size: int = 5_000_000
     nstep: int = 3
@@ -56,8 +68,14 @@ class AlgoConfig:
     noise: NoiseConfig = field(default_factory=NoiseConfig)
     critic_actor_ratio: int = 2
     critic_sample_ratio: int = 8
-    # runtime ratio adaptation is not ported yet; PQL refuses True
+    # on an eval-return stall, escalate critic_sample_ratio ×adapt_factor up
+    # to adapt_max_ratio through PQL.set_ratios (utils/ratio_control.py)
     adaptive_ratios: bool = False
+    adapt_window: int = 6
+    adapt_factor: int = 2
+    adapt_max_ratio: int = 32
+    # accepted for the JAX package's CLI; eager PyTorch has nothing to compile
+    adapt_precompile: bool = True
     # --- PQL-D distributional ---
     distl: bool = False
     v_min: float = -10.0
@@ -69,15 +87,17 @@ class AlgoConfig:
     iters_per_call: int = 4
     # use the hand-written CUDA kernel for the C51 target projection
     use_pallas: bool = True
-    # not ported yet; PQL refuses non-defaults
+    # replay sampling: 0 = iid (slot, env) pairs; n > 0 = a shared window of
+    # batch/n consecutive envs in each of n random slots (replay/buffer.py)
     sample_slots: int = 0
+    # gather every batch of a learner phase in one row gather before it
     prefetch_batches: bool = False
 
 
 def _algo_presets() -> dict[str, dict[str, Any]]:
     return {
-        "pql": dict(name="PQL"),
-        "pql_d": dict(name="PQL", distl=True),
+        "pql": dict(name="PQL", eval_freq=200),
+        "pql_d": dict(name="PQL", distl=True, eval_freq=200),
     }
 
 
@@ -85,12 +105,22 @@ def _algo_presets() -> dict[str, dict[str, Any]]:
 class Config:
     task: str = "Cartpole"
     algo: AlgoConfig = field(default_factory=AlgoConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
     num_envs: int = 4096
+    eval_num_envs: int = 150
     seed: int = 42
     max_step: int | None = None
     max_time: float = 3600.0  # seconds
+    artifact: str | None = None  # weights-only snapshot to start from
     # multi-device is not ported yet; PQL refuses anything but None or 1
     num_devices: int | None = None
+    # full-state checkpoint directory (resumed from if it holds one) and the
+    # save period in outer iterations (0 = every 500 when a directory is set)
+    checkpoint_dir: str | None = None
+    checkpoint_freq: int = 0
+    # torch.profiler Chrome trace of profile_iters iterations (None = off)
+    profile_dir: str | None = None
+    profile_iters: int = 20
 
 
 TASK_REWARD_SCALE: dict[str, float] = {

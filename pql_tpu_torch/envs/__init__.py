@@ -1,13 +1,19 @@
-"""Environment registry (port of pql_tpu/envs/__init__.py; Cartpole, the
-rigid-body locomotion tasks and the in-hand manipulation tasks so far)."""
+"""Environment registry (port of pql_tpu/envs/__init__.py; the classic
+tasks, the rigid-body locomotion tasks and the in-hand manipulation tasks so
+far). ``make_env(cfg)`` and ``make_eval_env(cfg)`` build the train and eval
+env instances."""
 
 from pql_tpu_torch.envs.base import Task, VecEnv, VecEnvState, handle_timeout
-from pql_tpu_torch.envs.classic import Cartpole
+from pql_tpu_torch.envs.classic import BallBalance, Cartpole, Pendulum, PointMass, Reacher
 from pql_tpu_torch.envs.hand import AllegroHand, ShadowHand
 from pql_tpu_torch.envs.rigid import Ant, Anymal, Humanoid
 
 TASK_REGISTRY = {
     "Cartpole": Cartpole,
+    "Pendulum": Pendulum,
+    "PointMass": PointMass,
+    "Reacher": Reacher,
+    "BallBalance": BallBalance,
     "Ant": Ant,
     "Humanoid": Humanoid,
     "Anymal": Anymal,
@@ -28,4 +34,11 @@ def make_env(cfg) -> VecEnv:
     return VecEnv(make_task(cfg.task), cfg.num_envs)
 
 
-__all__ = ["Task", "VecEnv", "VecEnvState", "handle_timeout", "TASK_REGISTRY", "make_task", "make_env"]
+def make_eval_env(cfg) -> VecEnv:
+    """A separate eval env with cfg.eval_num_envs instances and a task of its
+    own (on a card, a rigid or hand task captures its own graph for them)."""
+    return VecEnv(make_task(cfg.task), cfg.eval_num_envs)
+
+
+__all__ = ["Task", "VecEnv", "VecEnvState", "handle_timeout", "TASK_REGISTRY", "make_task", "make_env",
+           "make_eval_env"]

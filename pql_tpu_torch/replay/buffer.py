@@ -6,6 +6,10 @@ next_obs ∥ done along the feature axis, described by a ``layout`` tuple of
 narrower than 64 columns for the TPU's lanes; the port does not, so rows
 are exactly D wide and parity is checked on field views.
 
+A batch is either iid (slot, env) pairs or, with ``algo.sample_slots`` =
+n > 0, a slot-stratified window: n random slots, and from each the same
+B/n consecutive envs from a random circular offset (``window_index``).
+
 Pointers and counters are Python integers (the write pattern is fixed by
 the loop), so sampling needs no host-device sync. A ``valid_start``
 watermark excludes the first nstep-1 slots, written while the n-step FIFO
@@ -15,6 +19,8 @@ was filling, until the ring first wraps.
 from __future__ import annotations
 
 import torch
+
+from pql_tpu_torch.replay.nstep import FIELDS
 
 
 def replay_slots(memory_size: int, num_envs: int, write_len: int = 1) -> int:
@@ -73,20 +79,52 @@ class ReplayBuffer:
         self.ptr = (self.ptr + t) % self.slots
         self.total_writes += t
 
-    def sample(self, raw_slot: torch.Tensor, env_idx: torch.Tensor,
-               fields=("obs", "action", "reward", "next_obs", "done")) -> dict[str, torch.Tensor]:
-        """Batch at slot = valid_start + raw_slot % span, env = env_idx
-        (buffer.py:229-234); ``raw_slot`` is uniform on [0, 2^30)."""
+    def _slot_index(self, raw_slot: torch.Tensor) -> torch.Tensor:
+        """slot = valid_start + raw_slot % span (buffer.py:216-217, 229-230);
+        ``raw_slot`` is uniform on [0, 2^30)."""
         lo = self.valid_start
         span = max(self.filled - lo, 1)
-        slot_idx = lo + torch.remainder(raw_slot, span)
-        flat = self.data.view(self.slots * self.num_envs, -1)
-        batch = flat[slot_idx * self.num_envs + env_idx]  # one [B, D] row gather
+        return lo + torch.remainder(raw_slot, span)
+
+    def sample_index(self, raw_slot: torch.Tensor, env_idx: torch.Tensor) -> torch.Tensor:
+        """Flat row indices [..., B] of iid (slot, env) pairs."""
+        return self._slot_index(raw_slot) * self.num_envs + env_idx
+
+    def window_index(self, raw_slot: torch.Tensor, offset: torch.Tensor, batch_size: int) -> torch.Tensor:
+        """Flat row indices [..., B] of the slot-stratified window
+        (buffer.py:219-228): ``raw_slot`` [..., n] picks n slots, and each
+        gives B/n consecutive envs from the circular offset ``offset`` [...],
+        slot-major, as the JAX package's ``win.reshape(batch_size, -1)``.
+        The JAX code gathers the n whole [E, D] slabs and slices the window
+        out of them; the port gathers the same rows alone, in the same order."""
+        per = batch_size // raw_slot.shape[-1]
+        env = torch.remainder(offset[..., None] + torch.arange(per, device=offset.device), self.num_envs)
+        rows = self._slot_index(raw_slot)[..., :, None] * self.num_envs + env[..., None, :]
+        return rows.flatten(-2)
+
+    def rows(self, index: torch.Tensor) -> torch.Tensor:
+        """One row gather: [..., D] packed rows at flat indices ``index``."""
+        return self.data.view(self.slots * self.num_envs, -1)[index]
+
+    def split(self, rows: torch.Tensor, fields=FIELDS) -> dict[str, torch.Tensor]:
+        """Field views of packed rows, as float32."""
         out = {}
         for name in fields:
             s, d = self.field_range(name)
-            out[name] = batch[:, s : s + d].float()
+            out[name] = rows[..., s : s + d].float()
         return out
+
+    def sample(self, raw_slot: torch.Tensor, env_idx: torch.Tensor, fields=FIELDS) -> dict[str, torch.Tensor]:
+        """Batch at slot = valid_start + raw_slot % span, env = env_idx
+        (buffer.py:229-234): one [B, D] row gather."""
+        return self.split(self.rows(self.sample_index(raw_slot, env_idx)), fields)
+
+
+def window_fits(sample_slots: int, batch_size: int, num_envs: int) -> bool:
+    """Whether ``sample_slots`` = n selects the slot-stratified window: n > 0,
+    n divides the batch and B/n <= E; otherwise the sample is iid pairs
+    (buffer.py:219)."""
+    return bool(sample_slots) and batch_size % sample_slots == 0 and batch_size // sample_slots <= num_envs
 
 
 def draw_sample_indices(gen: torch.Generator, count: int, batch_size: int, num_envs: int):
@@ -94,3 +132,11 @@ def draw_sample_indices(gen: torch.Generator, count: int, batch_size: int, num_e
     raw = torch.randint(0, 1 << 30, (count, batch_size), generator=gen, device=gen.device)
     env = torch.randint(0, num_envs, (count, batch_size), generator=gen, device=gen.device)
     return raw, env
+
+
+def draw_window_indices(gen: torch.Generator, count: int, sample_slots: int, num_envs: int):
+    """Raw slot draws on [0, 2^30), [count, n], and circular env offsets on
+    [0, E), [count], for ``count`` window batches."""
+    raw = torch.randint(0, 1 << 30, (count, sample_slots), generator=gen, device=gen.device)
+    off = torch.randint(0, num_envs, (count,), generator=gen, device=gen.device)
+    return raw, off

@@ -1,65 +1,233 @@
-"""Training entry point of the port (mirrors scripts/train.py::train_pql).
+"""Training entry point of the port (scripts/train.py::train_pql, :126-245).
 
     python -m pql_tpu_torch.train algo=pql_d task=Cartpole num_envs=4096 max_time=600
-    python -m pql_tpu_torch.train algo=pql task=Cartpole max_step=2000000 --device=cuda
-    python -m pql_tpu_torch.train algo=pql task=Ant num_envs=64 algo.batch_size=256 \
+    python -m pql_tpu_torch.train algo=pql_d task=Cartpole num_envs=4096 max_step=20000000 \\
+        checkpoint_dir=runs/ckpt logging.out_dir=runs
+    python -m pql_tpu_torch.train algo=pql task=Ant num_envs=64 algo.batch_size=256 \\
         algo.memory_size=100000 max_step=20000 --device=cpu
-    python -m pql_tpu_torch.train algo=pql_d task=AllegroHand num_envs=16384 \
+    python -m pql_tpu_torch.train algo=pql_d task=AllegroHand num_envs=16384 \\
         algo.memory_size=2000000 max_time=600
-    python -m pql_tpu_torch.train algo=pql task=AllegroHand num_envs=64 algo.batch_size=256 \
-        algo.memory_size=100000 max_step=20000 --device=cpu
 
-Warm-up, then ``train_block`` calls until ``max_step`` total env steps (if
-set) or ``max_time`` seconds, with one JSON line of metrics on stdout every
-``algo.log_freq`` iterations, including ``speed/env_steps``,
-``speed/critic_updates``, ``speed/actor_updates`` and the measured
-``speed/env_steps_per_s``. The evaluator, checkpoints, best-model
-snapshots and logger sinks are not ported yet.
+A run, as the JAX package's:
+
+- startup: ``artifact=`` starts from a weights-only snapshot; then, if
+  ``checkpoint_dir/state`` holds a full checkpoint, the run resumes from it
+  (no warm-up, the iteration and step counters continue) and says so on
+  stdout; else ``warm_up`` steps of uniform actions;
+- ``train_block`` calls until ``max_step`` total env steps (if set) or
+  ``max_time`` seconds, counted on the host;
+- every ``algo.log_freq`` iterations a metrics record with
+  ``speed/env_steps``, ``speed/critic_updates``, ``speed/actor_updates`` and
+  the measured ``speed/env_steps_per_s``;
+- every ``algo.eval_freq`` iterations an eval of ``eval_num_envs`` envs,
+  dispatched on a snapshot of the actor, critic and normalizer cloned at
+  dispatch and resolved at the next eval (or at the end); a new best
+  ``eval/return`` saves that snapshot to ``run_dir/best_model``. With
+  ``algo.adaptive_ratios`` each eval return feeds the ratio controller;
+- every ``checkpoint_freq`` iterations (500 if unset) a full checkpoint to
+  ``checkpoint_dir/state``, when ``checkpoint_dir`` is set;
+- with ``profile_dir``, a ``torch.profiler`` Chrome trace of
+  ``profile_iters`` iterations from iteration 2 on.
+
+Records go to ``logging.out_dir/run_name/metrics.jsonl`` and the console
+(``utils/logging.py``). The run is on the card unless ``--device=cpu``.
 """
 
 from __future__ import annotations
 
-import json
+import copy
+import os
 import sys
 import time
 
 import torch
 
 from pql_tpu_torch.algos.pql import PQL
-from pql_tpu_torch.cfg import parse_cli
+from pql_tpu_torch.cfg import parse_cli, to_dict
+from pql_tpu_torch.envs import make_eval_env
+from pql_tpu_torch.utils.checkpoint import (
+    load_model_snapshot,
+    maybe_resume_full_state,
+    restore_into_state,
+    save_checkpoint,
+    save_model_snapshot,
+)
+from pql_tpu_torch.utils.evaluator import Evaluator
+from pql_tpu_torch.utils.logging import RunLogger
+from pql_tpu_torch.utils.ratio_control import RatioController
+
+EVAL_SEED_OFFSET = 1  # the eval draws' generator: seed + 1, apart from the loop's
 
 
-def train_pql(cfg, device: str = "cuda") -> None:
+class _Every:
+    """Fire once whenever the iteration counter crosses a multiple of
+    ``freq``, for any iteration stride (a ``%`` gate with ``it +=
+    iters_per_call`` fires only every lcm(iters_per_call, freq) iterations,
+    and never again from a misaligned resumed counter)."""
+
+    def __init__(self, freq: int, it0: int = 0):
+        self.freq = max(int(freq), 1)
+        self.bucket = it0 // self.freq
+
+    def __call__(self, it: int) -> bool:
+        bucket = it // self.freq
+        if bucket > self.bucket:
+            self.bucket = bucket
+            return True
+        return False
+
+
+def _resumed_iter(cfg, state, resumed: bool, has_warmup: bool = True, per_env: bool = False) -> int:
+    """Outer-loop iteration count implied by a resumed env_steps counter,
+    excluding warm-up (``warm_up`` sim steps × num_envs). ``per_env``: the
+    counter holds steps per env (PQL)."""
+    if not resumed:
+        return 0
+    envs = 1 if per_env else cfg.num_envs
+    warm_steps = (getattr(cfg.algo, "warm_up", 0) if has_warmup else 0) * envs
+    steps_per_iter = cfg.algo.horizon_len * envs
+    return max(0, int(state.env_steps) - warm_steps) // steps_per_iter
+
+
+def _checkpoint_gate(cfg, it0: int) -> _Every:
+    """checkpoint_dir without a checkpoint_freq saves every 500 iterations:
+    a directory that never receives a state cannot resume."""
+    return _Every(cfg.checkpoint_freq or 500, it0)
+
+
+def _maybe_full_checkpoint(cfg, gate: _Every, it: int, state) -> None:
+    """The periodic full-state checkpoint, when checkpoint_dir is set."""
+    if cfg.checkpoint_dir and gate(it):
+        save_checkpoint(os.path.join(cfg.checkpoint_dir, "state"), state)
+
+
+class _ProfilerHook:
+    """A torch.profiler Chrome trace of ``profile_iters`` iterations from
+    iteration 2 on, into ``profile_dir/trace.json``; once per run."""
+
+    def __init__(self, cfg, device: torch.device):
+        self.cfg = cfg
+        self.activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            self.activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = None
+        self.count = 0
+        self.done = False
+
+    def tick(self, it: int) -> None:
+        if not self.cfg.profile_dir or self.done:
+            return
+        if self.prof is None and it >= 2:
+            self.prof = torch.profiler.profile(activities=self.activities)
+            self.prof.start()
+        elif self.prof is not None:
+            self.count += 1
+            if self.count >= self.cfg.profile_iters:
+                self.close()
+
+    def close(self) -> None:
+        """Write a trace still open when the run ends before profile_iters ticks."""
+        if self.prof is None:
+            return
+        self.prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(self.cfg.profile_dir, "trace.json"))
+        self.prof, self.done = None, True
+
+
+def train_pql(cfg, logger: RunLogger, device: str | torch.device = "cuda"):
+    """The PQL loop; returns the agent and its final state."""
     agent = PQL(cfg, device)
+    dev = agent.device
     state = agent.init()
-    state, _ = agent.warmup(state)
-    start = time.time()
-    it, log_bucket = 0, 0
-    last_log, last_steps = start, state.env_steps * cfg.num_envs
-    log_freq = max(int(cfg.algo.log_freq), 1)
-    while True:
-        state, metrics = agent.train_block(state)
-        it += agent.iters_per_call
-        steps = state.env_steps * cfg.num_envs  # per-env counter × envs, as in the JAX loop
-        if it // log_freq > log_bucket:  # fires for any iters_per_call stride
-            log_bucket = it // log_freq
-            rec = {k: float(v) for k, v in metrics.items()}
-            now = time.time()
-            rec.update({
-                "step": steps,
-                "time": now - start,
-                "speed/env_steps": steps,
-                "speed/critic_updates": state.critic_update_count,
-                "speed/actor_updates": state.actor_update_count,
-                "speed/env_steps_per_s": (steps - last_steps) / max(now - last_log, 1e-9),
-            })
-            last_log, last_steps = now, steps
-            print(json.dumps(rec), flush=True)
-        if cfg.max_step is not None:
-            if steps > cfg.max_step:
+    if cfg.artifact:  # weights-only start (reference model_util.py:9-21)
+        state = restore_into_state(state, load_model_snapshot(cfg.artifact))
+    state, resumed = maybe_resume_full_state(cfg, state)
+
+    evaluator = Evaluator(cfg, make_eval_env(cfg), agent.eval_actor_apply, dev)
+    eval_gen = torch.Generator(device=dev).manual_seed(cfg.seed + EVAL_SEED_OFFSET)
+    if resumed:
+        print(f"resumed the full state from {os.path.join(cfg.checkpoint_dir, 'state')} at env step "
+              f"{state.env_steps * cfg.num_envs} (no warm-up)", flush=True)
+    else:
+        state, _ = agent.warmup(state)
+
+    ratio_ctl = None
+    if cfg.algo.adaptive_ratios:
+        ratio_ctl = RatioController(
+            int(cfg.algo.critic_sample_ratio),
+            cfg.algo.critic_actor_ratio,
+            window=cfg.algo.adapt_window,
+            factor=cfg.algo.adapt_factor,
+            max_ratio=cfg.algo.adapt_max_ratio,
+        )
+        if cfg.algo.adapt_precompile:
+            rungs = agent.precompile_ratio_ladder(state, factor=cfg.algo.adapt_factor,
+                                                  max_ratio=cfg.algo.adapt_max_ratio)
+            logger.log({"adapt/precompiled_rungs": float(len(rungs))}, step=0)
+
+    best_ret = float("-inf")
+    # one eval in flight at a time: (handle, dispatch step, snapshot), resolved
+    # at the next eval event. The snapshot is cloned at dispatch: the
+    # optimizers update the live parameters in place.
+    pending_eval = None
+
+    def _flush_eval():
+        nonlocal pending_eval, best_ret
+        if pending_eval is None:
+            return
+        handle, ev_step, (snap_actor, snap_critic, snap_rms) = pending_eval
+        pending_eval = None
+        eval_metrics = Evaluator.resolve(handle)
+        if ratio_ctl is not None:
+            new_ratios = ratio_ctl.update(eval_metrics["eval/return"])
+            if new_ratios is not None:
+                agent.set_ratios(*new_ratios)
+                eval_metrics["train/critic_sample_ratio"] = new_ratios[0]
+        logger.log(eval_metrics, step=ev_step)
+        if eval_metrics["eval/return"] > best_ret and logger.run_dir:
+            best_ret = eval_metrics["eval/return"]
+            best_dir = os.path.join(logger.run_dir, "best_model")
+            save_model_snapshot(best_dir, snap_actor, snap_critic, snap_rms)
+            logger.log_artifact(best_dir, f"{cfg.task}_{cfg.algo.name}_model")
+
+    it = _resumed_iter(cfg, state, resumed, per_env=True)
+    log_gate = _Every(cfg.algo.log_freq, it)
+    eval_gate = _Every(cfg.algo.eval_freq, it)
+    ckpt_gate = _checkpoint_gate(cfg, it)
+    last_log, last_steps = time.time(), state.env_steps * cfg.num_envs
+    profiler = _ProfilerHook(cfg, dev)
+    try:
+        while True:
+            state, metrics = agent.train_block(state)
+            it += agent.iters_per_call
+            # env_steps (per env) and the update counters are Python integers:
+            # the host-side step counter, so the gates and the stop check never
+            # wait for the device
+            steps = state.env_steps * cfg.num_envs
+            profiler.tick(it)
+            if log_gate(it):
+                host = {k: float(v) for k, v in metrics.items()}
+                host["speed/env_steps"] = steps
+                host["speed/critic_updates"] = state.critic_update_count
+                host["speed/actor_updates"] = state.actor_update_count
+                # measured rate: Δ(counter)/Δt, never inferred from frequencies
+                now = time.time()
+                host["speed/env_steps_per_s"] = (steps - last_steps) / max(now - last_log, 1e-9)
+                last_log, last_steps = now, steps
+                logger.log(host, step=steps)
+            if eval_gate(it):
+                _flush_eval()  # resolve the previous eval
+                snap = (copy.deepcopy(state.actor), copy.deepcopy(state.critic), copy.deepcopy(state.obs_rms))
+                handle = evaluator.eval_policy_async(snap[0], snap[2], eval_gen)
+                pending_eval = (handle, steps, snap)
+            _maybe_full_checkpoint(cfg, ckpt_gate, it, state)
+            if evaluator.check_if_should_stop(steps):
+                _flush_eval()  # drain the eval in flight before exiting
                 break
-        elif time.time() - start > cfg.max_time:
-            break
+    finally:
+        profiler.close()
+    return agent, state
 
 
 def main(argv: list[str]) -> None:
@@ -72,7 +240,12 @@ def main(argv: list[str]) -> None:
             overrides.append(arg)
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device found (pass --device=cpu to run on the CPU)")
-    train_pql(parse_cli(overrides), device)
+    cfg = parse_cli(overrides)
+    logger = RunLogger(cfg, to_dict(cfg))
+    try:
+        train_pql(cfg, logger, device)
+    finally:
+        logger.close()
 
 
 if __name__ == "__main__":

@@ -22,6 +22,12 @@ this module imports nothing of JAX:
   out of its packed rows, so its lane padding is dropped.
 - ``load_pql_state(state, converted)`` writes such a conversion into a
   port ``PQLState`` (made by ``PQL.init``) in place, on its device.
+- ``snapshot_from_jax(tree, actor, critic)`` converts the ``{actor, critic,
+  obs_rms}`` payload of the JAX ``save_model_snapshot`` (read from its orbax
+  directory on the JAX side, as numpy) into the port's weights-only
+  snapshot. ``torch.save`` of the result to ``<dir>/snapshot.pt`` makes a
+  directory the port's ``artifact=`` starts from, so a policy trained by
+  the JAX package continues in the port.
 """
 
 from __future__ import annotations
@@ -56,6 +62,71 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
                 raise KeyError(f"unexpected flax leaf {'/'.join(prefix + [key])}")
 
     walk(tree, [])
+    return out
+
+
+def _flax_path(port_name: str) -> tuple[str, ...]:
+    """The flax path of a port parameter name: ``net.layers.0.weight`` ->
+    ``('MLPNet_0', 'TorchLinear_0', 'kernel')``."""
+    parts, out = port_name.split("."), []
+    i = 0
+    while i < len(parts):
+        if parts[i] == "net":
+            out.append("MLPNet_0")
+        elif parts[i] == "layers":
+            i += 1
+            out.append(f"TorchLinear_{parts[i]}")
+        elif parts[i] == "weight":
+            out.append("kernel")
+        else:
+            out.append(parts[i])
+        i += 1
+    return tuple(out)
+
+
+def params_from_jax_flat(flat, module: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """A raveled flax param vector (``jax.flatten_util.ravel_pytree``'s
+    order: leaves sorted by key at every level, each flattened row-major)
+    → ``module``'s state_dict. The JAX PQL keeps its params raveled, so its
+    snapshots hold such vectors; ``module`` supplies the names and shapes."""
+    flat = np.asarray(flat)
+    shapes = {name: tuple(t.shape) for name, t in module.state_dict().items()}
+    if flat.size != sum(int(np.prod(s)) for s in shapes.values()):
+        raise ValueError(f"flat params of size {flat.size} do not fit {type(module).__name__}")
+    out, at = {}, 0
+    for name in sorted(shapes, key=_flax_path):
+        shape = shapes[name]
+        n = int(np.prod(shape))
+        leaf = flat[at : at + n]
+        at += n
+        if name.endswith("weight"):  # a flax kernel is [in, out]
+            out[name] = torch.from_numpy(np.array(leaf.reshape(shape[::-1]).T))
+        else:
+            out[name] = torch.from_numpy(np.array(leaf.reshape(shape)))
+    return out
+
+
+def snapshot_from_jax(tree: dict, actor: torch.nn.Module | None = None,
+                      critic: torch.nn.Module | None = None) -> dict:
+    """The JAX weights-only snapshot ``{actor, critic, obs_rms}`` (numpy) →
+    the port's (``utils/checkpoint.py``). Params are flax trees, or raveled
+    vectors as the JAX PQL saves them, which need the port's ``actor`` /
+    ``critic`` module for their names and shapes."""
+
+    def params(x, module, what):
+        if isinstance(x, dict):
+            return params_from_jax(x)
+        if module is None:
+            raise ValueError(f"the snapshot's {what} params are raveled: pass the port's {what} module")
+        return params_from_jax_flat(x, module)
+
+    out = {}
+    if "actor" in tree:
+        out["actor"] = params(tree["actor"], actor, "actor")
+    if "critic" in tree:
+        out["critic"] = params(tree["critic"], critic, "critic")
+    if "obs_rms" in tree:
+        out["obs_rms"] = {k: _tensor(tree["obs_rms"][k], torch.float32) for k in ("mean", "var", "count")}
     return out
 
 

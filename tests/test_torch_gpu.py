@@ -8,6 +8,8 @@ installed. On the machine with the card:
 (``--noconftest``: tests/conftest.py sets up the JAX CPU mesh.)
 """
 
+import copy
+
 import pytest
 import torch
 from hypothesis import HealthCheck, given, settings
@@ -17,20 +19,25 @@ from chip_smoke import (
     C51_CASES,
     HAND_MAX_FLIPS,
     HAND_TASKS,
+    LEARNING_THRESHOLD,
     PHYS_MAX_FLIPS,
     RIGID_TASKS,
     c51_case,
     c51_logit_scale,
     envs_beyond_tol,
+    learning_gate_return,
+    state_diffs,
     step_tol,
 )
 from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import make_config
-from pql_tpu_torch.envs import make_task
+from pql_tpu_torch.envs import make_eval_env, make_task
 from pql_tpu_torch.envs.rigid import GraphedStep
 from pql_tpu_torch.physics import dynamics as td
 from pql_tpu_torch.ops import kernels
 from pql_tpu_torch.ops.kernels import c51_td_target, c51_td_target_plain
+from pql_tpu_torch.utils import checkpoint
+from pql_tpu_torch.utils.evaluator import Evaluator
 
 ATOL = 1e-5  # kernel vs plain version, fp32: i·Δz + v_min vs linspace support, FMA (chip_smoke.c51_logit_scale)
 
@@ -314,3 +321,52 @@ def test_ant_pql_iteration_on_card_matches_cpu(cuda):
     assert float((flat["cuda"] - flat["cpu"]).norm() / (flat["cpu"] - theta0).norm()) <= 1e-2
     for a, b in zip(losses["cuda"][1:], losses["cpu"][1:]):
         assert abs(a - b) <= 1e-3 * max(abs(b), 1e-6)
+
+
+@pytest.mark.gpu
+def test_learning_gate_on_card(cuda):
+    """The JAX package's Cartpole gate (tests/test_learning.py:32-59) on the
+    card: PQL seed 0, eval return > 250 after 150 iterations."""
+    assert learning_gate_return("pql", seed=0, device=cuda) > LEARNING_THRESHOLD
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo,task,E", [("pql_d", "Cartpole", 256), ("pql", "Ant", 64)])
+def test_kill_and_resume_bitwise_on_card(cuda, tmp_path, algo, task, E):
+    """Save after one iteration, continue two; a fresh agent of another seed
+    resumes and runs the same two: every tensor of the state bitwise equal,
+    the generator's state included. Ant's control step replays its CUDA graph
+    on the restored env state (new tensors, copied into the graph's inputs)."""
+    cfg = make_config(algo, task=task, num_envs=E, algo__batch_size=256, algo__memory_size=4096, algo__warm_up=8)
+    agent = PQL(cfg, device=cuda)
+    s, _ = agent.warmup(agent.init(seed=0))
+    s, _ = agent.train_iter(s)
+    checkpoint.save_checkpoint(str(tmp_path / "state"), s)
+    for _ in range(2):
+        s, _ = agent.train_iter(s)
+    agent2 = PQL(cfg, device=cuda)
+    s2 = checkpoint.load_checkpoint(str(tmp_path / "state"), agent2.init(seed=7))
+    for _ in range(2):
+        s2, _ = agent2.train_iter(s2)
+    assert state_diffs(s, s2) == []
+
+
+@pytest.mark.gpu
+def test_evaluator_card_matches_cpu(cuda):
+    """PointMass, 32 eval envs, the same weights, normalizer and draws on the
+    card and the CPU: eval/return and eval/episode_length within rtol 1e-5
+    (fp32; the actor's products sum in another order)."""
+    cfg = make_config("pql", task="PointMass", eval_num_envs=32)
+    agent = PQL(cfg, device="cpu")
+    state = agent.init(seed=0)
+    state.obs_rms.update(torch.randn(64, agent.obs_dim, generator=torch.Generator().manual_seed(1)))
+    ev_cpu = Evaluator(cfg, make_eval_env(cfg), agent.eval_actor_apply, "cpu")
+    draws = ev_cpu.draw(torch.Generator().manual_seed(2))
+    want = ev_cpu.eval_policy(state.actor, state.obs_rms, draws=draws)
+    actor, rms = copy.deepcopy(state.actor).to(cuda), copy.deepcopy(state.obs_rms)
+    for k in ("mean", "var", "count"):
+        setattr(rms, k, getattr(rms, k).to(cuda))
+    ev = Evaluator(cfg, make_eval_env(cfg), agent.eval_actor_apply, cuda)
+    got = ev.eval_policy(actor, rms, draws={k: v.to(cuda) for k, v in draws.items()})
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-5), k

@@ -79,6 +79,10 @@ def _reset_draw(env: JVecEnv, k_reset) -> np.ndarray:
         ["algo=pql_d", "task=Cartpole", "num_envs=4096"],
         ["algo=pql", "num_envs=64", "algo.batch_size=512", "algo.noise.std_max=0.5", "max_step=1e5"],
         ["algo=pql_d", "algo.compute_dtype=bfloat16", "algo.use_pallas=false", "algo.max_grad_norm=null"],
+        ["algo=pql", "task=PointMass", "eval_num_envs=32", "logging.mode=off", "logging.run_name=r",
+         "checkpoint_dir=ckpt", "checkpoint_freq=50", "algo.eval_freq=50", "algo.adaptive_ratios=true",
+         "algo.adapt_window=4", "algo.sample_slots=8", "algo.prefetch_batches=true", "artifact=snap",
+         "profile_dir=trace", "profile_iters=5"],
     ],
 )
 def test_cfg_parse_cli_matches(argv):
@@ -93,7 +97,7 @@ def test_cfg_parse_cli_matches(argv):
 
 def test_cfg_rejects_knobs_the_port_lacks():
     with pytest.raises(AttributeError):
-        tcfg.parse_cli(["algo=pql", "algo.eval_freq=10"])
+        tcfg.parse_cli(["algo=pql", "algo.update_times=4"])  # a DDPG knob
     with pytest.raises(ValueError):
         tcfg.parse_cli(["algo=ppo"])
 

@@ -218,24 +218,22 @@ def test_warmup_then_iterations_run_with_own_generator():
         assert torch.equal(p.detach(), v) and torch.equal(p.grad, g)
 
 
-@pytest.mark.parametrize(
-    "override",
-    [dict(algo__sample_slots=4), dict(algo__prefetch_batches=True), dict(algo__adaptive_ratios=True),
-     dict(num_devices=2)],
-)
+@pytest.mark.parametrize("override", [dict(num_devices=2)])
 def test_unported_options_fail_loudly(override):
     with pytest.raises(NotImplementedError):
         PQL(make_config("pql_d", **SMALL, **override), device="cpu")
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter importing the port (its entry point, the physics
-    engine, the rigid and the hand tasks) loads neither JAX, flax, optax nor
-    the JAX package."""
+    """A fresh interpreter importing the port (its entry point and its
+    services, the physics engine, the rigid and the hand tasks) loads
+    neither JAX, flax, optax nor the JAX package."""
     code = (
         "import sys, pql_tpu_torch, pql_tpu_torch.train, pql_tpu_torch.algos.pql, pql_tpu_torch.utils.convert\n"
         "import pql_tpu_torch.physics, pql_tpu_torch.physics.contact, pql_tpu_torch.envs.rigid\n"
-        "import pql_tpu_torch.envs.hand\n"
+        "import pql_tpu_torch.envs.hand, pql_tpu_torch.envs.classic\n"
+        "import pql_tpu_torch.utils.evaluator, pql_tpu_torch.utils.checkpoint, pql_tpu_torch.utils.logging\n"
+        "import pql_tpu_torch.utils.ratio_control\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pql_tpu')]\n"
         "assert not bad, bad\n"
     )

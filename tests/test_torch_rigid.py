@@ -64,6 +64,34 @@ def _one_thread():
 HAND_TASKS = ("AllegroHand", "ShadowHand")
 
 
+def _pendulum(key):  # pql_tpu/envs/classic.py:97-102
+    k1, k2 = jax.random.split(key)
+    return jnp.stack([jax.random.uniform(k1, (), jnp.float32, -jnp.pi, jnp.pi),
+                      jax.random.uniform(k2, (), jnp.float32, -1.0, 1.0)])
+
+
+def _point_mass(key):  # :136-142: pos, goal
+    k1, k2 = jax.random.split(key)
+    return jnp.concatenate([jax.random.uniform(k1, (2,), jnp.float32, -1.0, 1.0),
+                            jax.random.uniform(k2, (2,), jnp.float32, -1.0, 1.0)])
+
+
+def _reacher(key):  # :178-186: q from k1, the target's angle from k2, its radius from k3
+    k1, k2, k3 = jax.random.split(key, 3)
+    return jnp.concatenate([jax.random.uniform(k1, (2,), jnp.float32, -0.1, 0.1),
+                            jax.random.uniform(k2, (), jnp.float32, -jnp.pi, jnp.pi)[None],
+                            jax.random.uniform(k3, (), jnp.float32, 0.05, 0.2)[None]])
+
+
+def _ball_balance(key):  # :245-252: tilt, ball
+    k1, k2 = jax.random.split(key)
+    return jnp.concatenate([jax.random.uniform(k1, (2,), jnp.float32, -0.05, 0.05),
+                            jax.random.uniform(k2, (2,), jnp.float32, -0.25, 0.25)])
+
+
+CLASSIC_DRAWS = {"Pendulum": _pendulum, "PointMass": _point_mass, "Reacher": _reacher, "BallBalance": _ball_balance}
+
+
 def jax_reset_draws(task, keys) -> torch.Tensor:
     """The port's ``draw_reset`` layout filled with the numbers the JAX
     ``task.init_state`` draws at each of ``keys``: the JAX package's
@@ -72,6 +100,8 @@ def jax_reset_draws(task, keys) -> torch.Tensor:
     if name == "Cartpole":
         fresh = jax.vmap(task.init_state)(keys)
         return torch.from_numpy(np.array(jnp.stack([fresh[f] for f in ("x", "x_dot", "theta", "theta_dot")], -1)))
+    if name in CLASSIC_DRAWS:
+        return torch.from_numpy(np.array(jax.vmap(CLASSIC_DRAWS[name])(keys)))
     if name in HAND_TASKS:  # pql_tpu/envs/hand.py:288-302: finger offsets, cube quat, target quat
 
         def hand(key):
