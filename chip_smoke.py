@@ -60,9 +60,22 @@ line each:
    iterations with ``algo.sample_slots=8``: finite losses, exact counters;
 14. learning_gate — the JAX package's Cartpole gate (tests/test_learning.py:
    37-59, ``LEARNING_GATE``): PQL seed 0 must reach eval return > 250 after
-   150 iterations; seeds 1 and 2 and PQL-D seed 0 are printed, unchecked.
+   150 iterations; PQL-D seed 0 is printed, unchecked;
+15. baseline_reference — warm-up and two iterations of DDPG, SAC and CrossQ
+   at a small size on the card and on the CPU, same state and draws;
+16. baseline_main_path — DDPG Cartpole @16 (the JAX bench's
+   cartpole_ddpg_16) for 202 iterations, and DDPG, SAC and CrossQ on Ant
+   @4096 for 11 iterations each after the warm-up, at full width: ms/iter,
+   env-steps/s, 8 updates per iteration, device ms/iter (sim graph and
+   learner on Ant);
+17. baseline_entry_path — ``train.main`` with DDPG Cartpole @16: evals at
+   the predicted iterations, the best model and checkpoint, and a resumed run
+   bitwise equal to an uninterrupted one;
+18. ddpg_learning_gate — the JAX package's DDPG gate (tests/test_learning.py:
+   62-84, ``DDPG_GATE``): seed 0's best eval return at iterations 200, 225
+   and 250 must exceed 400; seed 1 is printed.
 
-Each main path, and each of phases 11, 12 and 14, resets the kernels'
+Each main path, and each of phases 11, 12, 14 and 16-18, resets the kernels'
 launch counts just before it drives the port and reads them just after. Then the ``{"kernels": [...]}`` line, the nvidia-smi
 line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -136,6 +149,30 @@ LEARNING_GATE = dict(task="Cartpole", num_envs=256, eval_num_envs=32, algo__batc
                      algo__memory_size=200_000, algo__warm_up=16, logging__mode="off")
 LEARNING_ITERS = 150
 LEARNING_THRESHOLD = 250.0
+# the JAX package's DDPG gate (tests/test_learning.py:62-84): eval return > 400
+# after warm-up and 250 iterations of DDPG on Cartpole from seed 0. Read here
+# as the best of the evals at iterations 200, 225 and 250: a learned DDPG
+# policy's eval return dips by ~110 at single evals (seed 0 on the card:
+# 499.67, 385.49, 499.74 at iterations 225, 250, 275; PERF.md §6)
+DDPG_GATE = dict(task="Cartpole", num_envs=64, eval_num_envs=32, algo__batch_size=512,
+                 algo__memory_size=100_000, algo__warm_up=32, algo__update_times=8, logging__mode="off")
+DDPG_ITERS = 250
+DDPG_EVALS = (200, 225, 250)
+DDPG_THRESHOLD = 400.0
+DDPG_GATE_SEEDS = (0, 1)  # seed 0 is checked, seed 1 printed
+# algo -> (configuration, iterations, threshold, the iterations whose best eval return the gate reads)
+GATES = {"pql": (LEARNING_GATE, LEARNING_ITERS, LEARNING_THRESHOLD, (LEARNING_ITERS,)),
+         "pql_d": (LEARNING_GATE, LEARNING_ITERS, LEARNING_THRESHOLD, (LEARNING_ITERS,)),
+         "ddpg": (DDPG_GATE, DDPG_ITERS, DDPG_THRESHOLD, DDPG_EVALS)}
+BASELINE_ALGOS = ("ddpg", "sac", "crossq")
+BASELINE_REF = dict(num_envs=64, algo__batch_size=256, algo__memory_size=64 * 64, algo__warm_up=8)
+# the JAX bench's cartpole_ddpg_16 (bench.py:156-164): the Cartpole baseline cell and the entry point's
+DDPG_CARTPOLE_ARGV = ("algo=ddpg", "task=Cartpole", "num_envs=16", "algo.batch_size=1024", "algo.memory_size=1000000")
+DDPG_CARTPOLE_DEPTH = (8, 4, 48, 2)  # warm, blocks x iterations timed, profiled: 202 iterations
+BASELINE_ANT_DEPTH = (2, 2, 4, 1)  # 11 iterations after the warm-up
+BASELINE_ENTRY_ITERS = (24, 30)  # the first run stops after 24 iterations, the resumed one after 30
+BASELINE_ENTRY_EVAL_FREQ = 12  # evals at iterations 12, 24 (and 36 on no run)
+BASELINE_ENTRY_CKPT_FREQ = 12
 SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
 
@@ -979,31 +1016,42 @@ def sampling_options(dev) -> dict:
                 ms_per_iter_by_prefetch=prefetch_ms, sample_slots=8, sample_slots_iterations=SLOT_ITERS, sample_slots_losses=lo.tolist())
 
 
-def learning_gate_return(algo: str, seed: int, device, iters: int = LEARNING_ITERS) -> float:
-    """Eval return of the JAX package's Cartpole gate configuration
-    (``LEARNING_GATE``) after warm-up and ``iters`` iterations from ``seed``,
-    by the port's Evaluator with draws from seed 123."""
+def learning_gate_evals(algo: str, seed: int, device, at: tuple[int, ...]) -> dict[int, float]:
+    """Eval returns of the JAX package's Cartpole gate configuration for
+    ``algo`` (``GATES``) from ``seed``, after warm-up and each number of
+    iterations in ``at``, by the port's Evaluator with draws from seed 123."""
     import torch
-    from pql_tpu_torch.algos.pql import PQL
+    from pql_tpu_torch.algos import get_algo
     from pql_tpu_torch.cfg import make_config
     from pql_tpu_torch.envs import make_eval_env
     from pql_tpu_torch.utils.evaluator import Evaluator
 
-    cfg = make_config(algo, seed=seed, **LEARNING_GATE)
-    agent = PQL(cfg, device=device)
+    cfg = make_config(algo, seed=seed, **GATES[algo][0])
+    agent = get_algo(cfg.algo.name)(cfg, device=device)
     state, _ = agent.warmup(agent.init())
-    for _ in range(iters):
-        state, _ = agent.train_iter(state)
     ev = Evaluator(cfg, make_eval_env(cfg), agent.eval_actor_apply, device)
-    return ev.eval_policy(state.actor, state.obs_rms, torch.Generator(device=device).manual_seed(123))["eval/return"]
+    out = {}
+    for it in range(1, max(at) + 1):
+        state, _ = agent.train_iter(state)
+        if it in at:
+            gen = torch.Generator(device=device).manual_seed(123)
+            out[it] = ev.eval_policy(state.actor, state.obs_rms, gen)["eval/return"]
+    return out
+
+
+def learning_gate_return(algo: str, seed: int, device, iters: int | None = None) -> float:
+    """The statistic a gate reads: the best eval return at its iterations
+    (``GATES``), or the eval return after ``iters`` iterations."""
+    return max(learning_gate_evals(algo, seed, device, GATES[algo][3] if iters is None else (iters,)).values())
 
 
 def learning_gate(dev) -> dict:
-    """PQL seed 0 must pass the gate; seeds 1-2 and PQL-D seed 0 are printed."""
+    """PQL seed 0 must pass the gate; PQL-D seed 0 is printed (seeds 1-4:
+    ``tools/gate_trace.py``)."""
     from pql_tpu_torch.ops import kernels
 
     out, launches = {}, {}
-    for algo, seed in (("pql", 0), ("pql", 1), ("pql", 2), ("pql_d", 0)):
+    for algo, seed in (("pql", 0), ("pql_d", 0)):
         kernels.reset_launches()
         t0 = time.perf_counter()
         ret = learning_gate_return(algo, seed, dev)
@@ -1015,6 +1063,293 @@ def learning_gate(dev) -> dict:
           f"PQL failed the Cartpole gate: eval return {out['pql seed 0']['eval_return']} <= {LEARNING_THRESHOLD}")
     return dict(config=LEARNING_GATE, iterations=LEARNING_ITERS, threshold=LEARNING_THRESHOLD, checked="pql seed 0",
                 runs=out, launches=launches)
+
+
+def pre_batchnorm_biases(module) -> set[str]:
+    """Names of the Linear biases that a BatchNorm follows (CrossQ's critic):
+    in train mode it subtracts its batch's mean, so their gradient is zero
+    but for rounding, and each Adam step moves them by up to the learning
+    rate in an arbitrary direction, on the card and on the CPU alike."""
+    from pql_tpu_torch.models.mlp import MLPNet
+
+    return {f"{name}.layers.{i}.bias" for name, m in module.named_modules()
+            if isinstance(m, MLPNet) and m.norms is not None for i in range(len(m.norms))}
+
+
+def baseline_reference(dev) -> dict:
+    """Warm-up and two iterations of DDPG, SAC and CrossQ at a small size on
+    the card and on the CPU, from the same initial state (drawn on the CPU
+    from the seed) with the same draws: each parameter step (actor, critic,
+    SAC's log α, CrossQ's BatchNorm statistics) within 1% of its norm, losses
+    within 1e-3 (relative; absolute below 1), the replay within 1e-4. The
+    pre-BatchNorm biases of CrossQ's critic are held to the Adam bound alone
+    (``pre_batchnorm_biases``)."""
+    import torch
+    from pql_tpu_torch.algos import get_algo
+    from pql_tpu_torch.cfg import make_config
+
+    out = {}
+    for algo in BASELINE_ALGOS:
+        cfg = make_config(algo, **BASELINE_REF)
+        agents = {d: get_algo(cfg.algo.name)(cfg, device=d) for d in ("cpu", dev)}
+        states = {d: a.init() for d, a in agents.items()}
+        noisy = pre_batchnorm_biases(states["cpu"].critic)
+
+        def parts(st):
+            p = {f"{n}.{k}": v for n in ("actor", "critic") for k, v in getattr(st, n).named_parameters()}
+            p.update({f"critic.{k}": v for k, v in st.critic.named_buffers()})
+            if getattr(st, "log_alpha", None) is not None:
+                p["log_alpha"] = st.log_alpha
+            return {k: v.detach().float().cpu().clone() for k, v in p.items()}
+
+        theta0 = parts(states["cpu"])
+        gen = torch.Generator().manual_seed(1)
+        losses = {d: [] for d in agents}
+        for it in range(3):
+            draws = agents["cpu"].draw_iteration(gen, random=(it == 0))
+            for d, agent in agents.items():
+                step = agent.warmup if it == 0 else agent.train_iter
+                states[d], m = step(states[d], {k: v.to(d) for k, v in draws.items()})
+                if it:
+                    losses[d] += [float(m["train/critic_loss"]), float(m["train/actor_loss"])]
+        got, want = parts(states[dev]), parts(states["cpu"])
+        groups = {"actor": [], "critic": [], "critic_batchnorm_stats": [], "log_alpha": []}
+        for k in want:
+            if k.removeprefix("critic.") in noisy:
+                continue
+            g = ("critic_batchnorm_stats" if k.endswith((".mean", ".var")) else k.split(".")[0])
+            groups[g].append(k)
+        rel = {g: float(torch.cat([(got[k] - want[k]).flatten() for k in ks]).norm()
+                        / torch.cat([(want[k] - theta0[k]).flatten() for k in ks]).norm())
+               for g, ks in groups.items() if ks}
+        updates = 2 * cfg.algo.update_times
+        noise_err = max((float((got[f"critic.{k}"] - want[f"critic.{k}"]).abs().max()) for k in noisy), default=0.0)
+        loss_err = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(losses[dev], losses["cpu"]))
+        replay_err = float((states[dev].replay.data.cpu() - states["cpu"].replay.data).abs().max())
+        for g, r in rel.items():
+            check(r <= 1e-2, f"{algo}: card vs CPU {g} step differs by {r:.3g} of its norm")
+        check(noise_err <= 2 * cfg.algo.critic_lr * updates, f"{algo}: pre-BatchNorm biases differ by {noise_err:.3g}")
+        check(loss_err <= 1e-3, f"{algo}: card vs CPU loss differs by {loss_err:.3g}")
+        check(replay_err <= 1e-4, f"{algo}: card vs CPU replay differs by {replay_err:.3g}")
+        check(states[dev].update_count == updates and states["cpu"].update_count == updates, f"{algo} counters")
+        out[algo] = dict(step_rel_err=rel, loss_rel_err=loss_err, replay_max_abs_err=replay_err,
+                         pre_batchnorm_bias_max_abs_err=noise_err if noisy else None)
+    return dict(config=BASELINE_REF, iterations=2, runs=out)
+
+
+def baseline_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters: int, profiled_iters: int,
+                 sim_ms: float | None = None) -> dict:
+    """A DDPG, SAC or CrossQ path at full width: warm-up, then ``warm_iters``
+    + ``blocks`` x ``block_iters`` iterations timed in blocks, then a profiled
+    window of ``profiled_iters`` whose kernel time is the device time of
+    whole iterations; on a rigid task one replay of the control step's graph,
+    profiled alone, is the sim's share (or ``sim_ms``, that of another run's
+    graph of the same task and envs). The kernels' launch counts are reset
+    before the path runs and read after it."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pql_tpu_torch.algos import get_algo
+    from pql_tpu_torch.cfg import parse_cli
+    from pql_tpu_torch.ops import kernels
+
+    cfg = parse_cli(list(argv))
+    agent = get_algo(cfg.algo.name)(cfg, device=dev)
+    E, label = cfg.num_envs, f"{cfg.algo.name} {cfg.task}@{cfg.num_envs}"
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state = agent.init()
+    ring = (int(cfg.algo.memory_size) // E, E, 2 * agent.obs_dim + agent.action_dim + 2)
+    check(tuple(state.replay.data.shape) == ring, f"{label} replay ring {tuple(state.replay.data.shape)}, want {ring}")
+    state, _ = agent.warmup(state)
+    losses, block_ms = [], []
+
+    def run(n):
+        nonlocal state
+        for _ in range(n):
+            state, m = agent.train_iter(state)
+            losses.append(torch.stack([m["train/critic_loss"], m["train/actor_loss"]]))
+
+    run(warm_iters)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for _ in range(blocks):
+        t1 = time.perf_counter()
+        run(block_iters)
+        torch.cuda.synchronize()
+        block_ms.append(1e3 * (time.perf_counter() - t1) / block_iters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        run(profiled_iters)
+        torch.cuda.synchronize()
+        profiled_wall_ms = 1e3 * (time.perf_counter() - t1) / profiled_iters
+    launches = dict(kernels.LAUNCHES)
+    iters = warm_iters + blocks * block_iters + profiled_iters
+    lo = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(lo).all()), f"non-finite loss on the {label} path")
+    check(cfg.algo.update_times == 8 and state.update_count == 8 * iters,
+          f"{label}: {state.update_count} updates after {iters} iterations")
+    check(state.env_steps == (cfg.algo.warm_up + iters) * E and state.replay.total_writes == cfg.algo.warm_up + iters,
+          f"{label} env steps / replay writes")
+    trackers = {k: float(v) for k, v in state.stats.metrics().items()}
+    check(all(math.isfinite(v) for v in trackers.values()), f"{label} trackers {trackers}")
+
+    t1 = time.perf_counter()
+    kernel_rows = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA
+                   and not getattr(r, "is_user_annotation", False)]
+    kernel_ms = sum(_self_device_us(r) for r in kernel_rows) / 1e3 / profiled_iters
+    profile_read_s = time.perf_counter() - t1
+    ms = statistics.median(block_ms)
+    out = dict(
+        config=" ".join(argv) + f" (batch {cfg.algo.batch_size}, memory {cfg.algo.memory_size:g}, "
+                                f"update_times {cfg.algo.update_times}, fp32, reward scale {cfg.algo.reward_scale:g})",
+        replay_ring=list(ring), replay_ring_gb=state.replay.data.numel() * 4 / 1e9, card=smi, iterations=iters,
+        setup_s=setup_s, ms_per_iter=ms, env_steps_per_s=1e3 * E / ms, block_ms_per_iter=block_ms,
+        critic_loss_last=float(lo[-1][0]), actor_loss_last=float(lo[-1][1]), update_count=state.update_count,
+        env_steps=state.env_steps, replay_writes=state.replay.total_writes,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, trackers=trackers, launches=launches,
+        profiled_wall_ms_per_iter=profiled_wall_ms, device_ms_per_iter=kernel_ms, device_busy_share=kernel_ms / ms,
+        profile_read_s=profile_read_s,
+    )
+    if getattr(state, "log_alpha", None) is not None:
+        out["log_alpha"] = float(state.log_alpha.detach())
+    graphs = getattr(agent.env.task, "_graphs", None)
+    if graphs and sim_ms is not None:
+        out.update(sim_graph_device_ms_per_iter=sim_ms, learner_and_rest_device_ms_per_iter=kernel_ms - sim_ms,
+                   sim_graph_measured_in="the first Ant run (the same task, envs and graph)")
+    elif graphs:
+        graph = graphs[(E, torch.device(dev))]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
+            graph.graph.replay()
+            torch.cuda.synchronize()
+        graph_kernels, _ = graph_kernel_nodes(graph.graph)
+        check(_kernel_launches(gprof) >= 0.99 * graph_kernels,
+              f"the profiler does not trace the {label} graph's kernels: no sim/learner split")
+        sim_ms = sum(_self_device_us(r) for r in gprof.key_averages() if r.device_type == DeviceType.CUDA) / 1e3
+        out.update(sim_graph_device_ms_per_iter=sim_ms, learner_and_rest_device_ms_per_iter=kernel_ms - sim_ms,
+                   launches_per_control_step=graph_kernels)
+    return out
+
+
+def baseline_main_path(dev, smi: str) -> dict:
+    """DDPG on Cartpole @16 (the JAX bench's cartpole_ddpg_16) for 207
+    iterations, then DDPG, SAC and CrossQ on Ant @4096 (batch 8192, memory
+    5e6: ring 1220 x 4096 x 78 fp32; CrossQ's critic sees 16,384 rows per
+    update) for 12 iterations each after the warm-up."""
+    import torch
+
+    runs, sim_ms = {}, None
+    for argv, depth in [(DDPG_CARTPOLE_ARGV, DDPG_CARTPOLE_DEPTH)] + [
+            ((f"algo={a}", "task=Ant", "num_envs=4096"), BASELINE_ANT_DEPTH) for a in BASELINE_ALGOS]:
+        t0 = time.perf_counter()
+        r = baseline_run(dev, smi, argv, *depth, sim_ms=sim_ms)
+        sim_ms = r.get("sim_graph_device_ms_per_iter")
+        r["wall_s"] = time.perf_counter() - t0
+        runs[" ".join(argv[:3])] = r
+        torch.cuda.empty_cache()
+    return dict(runs=runs)
+
+
+def baseline_entry_path(dev, smi: str) -> dict:
+    """``pql_tpu_torch.train.main`` with DDPG on Cartpole @16 for
+    ``BASELINE_ENTRY_ITERS[0]`` iterations, with evals, full checkpoints and
+    a best model in ``SMOKE_DIR/baseline_entry``: the eval records at the
+    predicted iterations and the files; then ``train_baseline`` resumes from
+    the checkpoint to ``BASELINE_ENTRY_ITERS[1]`` iterations without a
+    warm-up, and ends bitwise where one uninterrupted run of as many
+    iterations ends."""
+    import contextlib
+    import io
+    import shutil
+    import statistics
+
+    import torch
+    from pql_tpu_torch import train
+    from pql_tpu_torch.cfg import parse_cli
+    from pql_tpu_torch.ops import kernels
+    from pql_tpu_torch.utils import checkpoint
+    from pql_tpu_torch.utils.logging import RunLogger
+
+    root = os.path.join(SMOKE_DIR, "baseline_entry")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = parse_cli(list(DDPG_CARTPOLE_ARGV))
+    E, warm = cfg.num_envs, cfg.algo.warm_up
+    first, total = BASELINE_ENTRY_ITERS
+    common = list(DDPG_CARTPOLE_ARGV) + [
+        f"algo.eval_freq={BASELINE_ENTRY_EVAL_FREQ}", "algo.log_freq=4", f"checkpoint_freq={BASELINE_ENTRY_CKPT_FREQ}",
+        f"logging.out_dir={root}/runs", "logging.console=false"]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    train.main(common + [f"max_step={(warm + first - 1) * E}", f"checkpoint_dir={root}/ckpt",
+                         "logging.run_name=first", f"--device={dev}"])
+    torch.cuda.synchronize()
+    wall_first = time.perf_counter() - t0
+    run_dir = os.path.join(root, "runs", "first")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    it_of = lambda step: step // E - warm  # noqa: E731
+    evals = [r for r in recs if "eval/return" in r]
+    eval_its = list(range(BASELINE_ENTRY_EVAL_FREQ, first + 1, BASELINE_ENTRY_EVAL_FREQ))
+    check([it_of(r["step"]) for r in evals] == eval_its,
+          f"eval records at iterations {[it_of(r['step']) for r in evals]}, predicted {eval_its}")
+    check(all(math.isfinite(r["eval/return"]) for r in evals), "non-finite eval record")
+    ckpt_file = os.path.join(root, "ckpt", "state", checkpoint.STATE_FILE)
+    check(os.path.exists(ckpt_file) and os.path.exists(os.path.join(run_dir, "best_model", checkpoint.SNAPSHOT_FILE)),
+          "the checkpoint or the best model is missing")
+    speed = [r for r in recs if "speed/env_steps_per_s" in r]
+    ms = {it_of(r["step"]): 1e3 * E / r["speed/env_steps_per_s"] for r in speed}
+
+    def run(name, ckpt):
+        c = parse_cli(common + [f"max_step={(warm + total - 1) * E}", f"checkpoint_dir={root}/{ckpt}",
+                                f"logging.run_name={name}"])
+        logger = RunLogger(c)
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                state = train.train_baseline(c, logger, dev)[1]
+        finally:
+            logger.close()
+        return state, out.getvalue()
+
+    t0 = time.perf_counter()
+    resumed, printed = run("second", "ckpt")
+    wall_resumed = time.perf_counter() - t0
+    check(f"at env step {(warm + first) * E} (no warm-up)" in printed, f"the rerun did not resume: {printed[-200:]!r}")
+    whole, _ = run("whole", "ckpt_whole")
+    diffs = state_diffs(resumed, whole)
+    check(not diffs, f"the resumed baseline run differs from the uninterrupted one in {diffs[:8]}")
+    check(resumed.update_count == 8 * total, f"{resumed.update_count} updates after {total} iterations")
+    launches = dict(kernels.LAUNCHES)
+    ckpt_bytes = os.path.getsize(ckpt_file)
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(
+        config=" ".join(DDPG_CARTPOLE_ARGV), card=smi, iterations_first=first, iterations_resumed=total,
+        eval_iterations=eval_its, eval_returns=[r["eval/return"] for r in evals], bitwise_equal_after_resume=True,
+        checkpoint_bytes=ckpt_bytes, wall_s_first=wall_first, wall_s_resumed=wall_resumed,
+        ms_per_iter_by_interval=ms, ms_per_iter_median=statistics.median(ms.values()), launches=launches,
+    )
+
+
+def ddpg_learning_gate(dev) -> dict:
+    """The JAX package's DDPG gate: seed 0's best eval return at iterations
+    ``DDPG_EVALS`` must pass; seed 1 is printed (seeds 2-4:
+    ``tools/gate_trace.py``)."""
+    from pql_tpu_torch.ops import kernels
+
+    out = {}
+    kernels.reset_launches()
+    for seed in DDPG_GATE_SEEDS:
+        t0 = time.perf_counter()
+        evals = learning_gate_evals("ddpg", seed, dev, DDPG_EVALS)
+        out[f"ddpg seed {seed}"] = dict(eval_returns=evals, best=max(evals.values()), wall_s=time.perf_counter() - t0)
+    ret = out["ddpg seed 0"]["best"]
+    check(ret > DDPG_THRESHOLD, f"DDPG failed the Cartpole gate: best eval return {ret} <= {DDPG_THRESHOLD}")
+    return dict(config=DDPG_GATE, iterations=DDPG_ITERS, evals_at=DDPG_EVALS, threshold=DDPG_THRESHOLD,
+                checked="ddpg seed 0, best of the evals", runs=out, launches=dict(kernels.LAUNCHES))
 
 
 def main() -> int:
@@ -1066,11 +1401,22 @@ def main() -> int:
     emit(dict(phase="sampling_options", wall_s=s, **sampling))
     gate, s = timed(learning_gate, dev)
     emit(dict(phase="learning_gate", card=smi, wall_s=s, **gate))
+    bref, s = timed(baseline_reference, dev)
+    emit(dict(phase="baseline_reference", wall_s=s, **bref))
+    bmain, s = timed(baseline_main_path, dev, smi)
+    emit(dict(phase="baseline_main_path", wall_s=s, **bmain))
+    bentry, s = timed(baseline_entry_path, dev, smi)
+    emit(dict(phase="baseline_entry_path", wall_s=s, **bentry))
+    bgate, s = timed(ddpg_learning_gate, dev)
+    emit(dict(phase="ddpg_learning_gate", card=smi, wall_s=s, **bgate))
 
     by_path = {"pql_d Cartpole@4096": main["launches"], "pql_d AllegroHand@16384": allegro_d["launches"],
                "pql_d Cartpole@4096 entry point": entry["launches"],
                "pql_d Cartpole@4096 resume check": resume["launches"],
-               "pql_d Cartpole@256 learning run": gate["launches"]}
+               "pql_d Cartpole@256 learning run": gate["launches"],
+               **{f"{name} (baseline)": r["launches"] for name, r in bmain["runs"].items()},
+               "algo=ddpg Cartpole@16 entry point": bentry["launches"],
+               "ddpg Cartpole@64 learning runs": bgate["launches"]}
     emit({"kernels": [
         dict(name=c["name"], route="cuda", source=kernels.KERNELS[c["name"]]["source"],
              replaces=kernels.KERNELS[c["name"]]["replaces"],

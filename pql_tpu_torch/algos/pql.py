@@ -79,14 +79,11 @@ class PQLState:
 
 
 def check_supported(cfg) -> None:
-    """Fail on options the port does not implement yet."""
-    unsupported = {
-        "algo.name": (cfg.algo.name, "PQL"),
-        "num_devices": (cfg.num_devices or 1, 1),
-    }
-    for key, (value, supported) in unsupported.items():
-        if value != supported:
-            raise NotImplementedError(f"{key}={value!r} is not ported yet (only {supported!r})")
+    """Fail on another algorithm's config and on options the port does not implement yet."""
+    if cfg.algo.name != "PQL":
+        raise ValueError(f"PQL runs algo.name='PQL', not {cfg.algo.name!r} (algos.get_algo picks the agent)")
+    if (cfg.num_devices or 1) != 1:
+        raise NotImplementedError(f"num_devices={cfg.num_devices!r} is not ported yet (only 1)")
     if cfg.algo.noise.type not in ("mixed", "fixed"):
         raise ValueError(f"unknown algo.noise.type {cfg.algo.noise.type!r}")
 
@@ -196,15 +193,7 @@ class PQL:
         """
         cfg, E, A = self.cfg, self.num_envs, self.action_dim
         horizon = cfg.algo.warm_up if random else cfg.algo.horizon_len
-        d = {}
-        if random:
-            d["action_uniform"] = torch.rand(horizon, E, A, generator=gen, device=gen.device) * 2.0 - 1.0
-        else:
-            d["explore_normal"] = torch.randn(horizon, E, A, generator=gen, device=gen.device)
-        task = self.env.task
-        d["reset"] = torch.stack([task.draw_reset(gen, E) for _ in range(horizon)])
-        if hasattr(task, "draw_step"):
-            d["step"] = torch.stack([task.draw_step(gen, E) for _ in range(horizon)])
+        d = base.draw_rollout(gen, self.env.task, horizon, E, A, random)
         if not random:
             B = cfg.algo.batch_size
             for phase, count in (("critic", self.n_critic), ("actor", self.n_actor)):
@@ -364,10 +353,8 @@ class PQL:
                 loss = binary_cross_entropy(out1, target) + binary_cross_entropy(out2, target)
             else:
                 loss = torch.mean(torch.square(out1 - target)) + torch.mean(torch.square(out2 - target))
-            grads = torch.autograd.grad(loss, params)
-            base.optimizer_step(state.critic_opt, params, grads, cfg.algo.max_grad_norm)
+            losses.append(base.descend(state.critic_opt, params, loss, cfg.algo.max_grad_norm))
             soft_update(state.critic_target, state.critic, cfg.algo.tau)
-            losses.append(loss.detach())
         state.critic_update_count += self.n_critic
         return torch.stack(losses).mean()
 
@@ -388,9 +375,7 @@ class PQL:
             obs_n = self._normalize_clip(state, batch["obs"])
             # grads w.r.t. the actor only: the critic's parameters get none
             loss = -torch.mean(state.critic.q_min(obs_n, state.actor(obs_n)))
-            grads = torch.autograd.grad(loss, params)
-            base.optimizer_step(state.actor_opt, params, grads, cfg.algo.max_grad_norm)
-            losses.append(loss.detach())
+            losses.append(base.descend(state.actor_opt, params, loss, cfg.algo.max_grad_norm))
         state.actor_update_count += self.n_actor
         return torch.stack(losses).mean()
 

@@ -1,13 +1,15 @@
 """Dataclass configuration tree for the PyTorch port.
 
-A copy of the PQL part of ``pql_tpu.cfg.config``, kept here so the port
-imports nothing of the JAX package. The CLI grammar is the same:
+A copy of the PQL and off-policy baseline parts of ``pql_tpu.cfg.config``,
+kept here so the port imports nothing of the JAX package. The CLI grammar
+is the same:
 
     python -m pql_tpu_torch.train algo=pql_d task=Cartpole num_envs=4096 algo.batch_size=8192
+    python -m pql_tpu_torch.train algo=ddpg task=Cartpole num_envs=16 algo.batch_size=1024
 
-Only the fields the port's PQL path reads are kept, so an override of a
-knob the port does not implement fails with "No config field" instead of
-being ignored. The device is an argument of the entry points, not a
+Only the fields the port's PQL, DDPG, SAC and CrossQ paths read are kept,
+so an override of a knob the port does not implement fails with "No config
+field" instead of being ignored. The device is an argument of the entry points, not a
 config field.
 """
 
@@ -44,7 +46,8 @@ class LoggingConfig:
 
 @dataclass
 class AlgoConfig:
-    """PQL / PQL-D hyperparameters (actor_critic.yaml + pql_algo.yaml)."""
+    """PQL / PQL-D and DDPG / SAC / CrossQ hyperparameters (actor_critic.yaml,
+    pql_algo.yaml, ddpg_algo.yaml, sac_algo.yaml)."""
 
     name: str = "PQL"
     actor_lr: float = 5e-4
@@ -65,6 +68,9 @@ class AlgoConfig:
     warm_up: int = 32
     act_class: str = "TanhMLPPolicy"
     cri_class: str = "DoubleQ"
+    # the baselines: updates per iteration; the live actor as the target policy
+    update_times: int = 8
+    no_tgt_actor: bool = True
     noise: NoiseConfig = field(default_factory=NoiseConfig)
     critic_actor_ratio: int = 2
     critic_sample_ratio: int = 8
@@ -81,6 +87,9 @@ class AlgoConfig:
     v_min: float = -10.0
     v_max: float = 10.0
     num_atoms: int = 51
+    # --- SAC: a fixed temperature, or None to learn log α ---
+    alpha: float | None = None
+    alpha_lr: float = 5e-3
     compute_dtype: str = "float32"  # network compute dtype; params stay fp32
     replay_dtype: str = "float32"
     # iterations per train_block call (a Python loop in the port)
@@ -98,6 +107,9 @@ def _algo_presets() -> dict[str, dict[str, Any]]:
     return {
         "pql": dict(name="PQL", eval_freq=200),
         "pql_d": dict(name="PQL", distl=True, eval_freq=200),
+        "ddpg": dict(name="DDPG", eval_freq=100, update_times=8),
+        "sac": dict(name="SAC", act_class="TanhDiagGaussianMLPPolicy", eval_freq=100, update_times=8),
+        "crossq": dict(name="CrossQ", cri_class="DoubleQBatchNorm", eval_freq=100, update_times=8),
     }
 
 
@@ -112,6 +124,10 @@ class Config:
     max_step: int | None = None
     max_time: float = 3600.0  # seconds
     artifact: str | None = None  # weights-only snapshot to start from
+    # info-dict tracking of the baselines: keys and their modes ('last',
+    # 'all-episode' or 'all-step'; 'last' for every key when None)
+    info_track_keys: tuple[str, ...] | None = None
+    info_track_step: tuple[str, ...] | None = None
     # multi-device is not ported yet; PQL refuses anything but None or 1
     num_devices: int | None = None
     # full-state checkpoint directory (resumed from if it holds one) and the
@@ -175,6 +191,8 @@ def _coerce(value: str, ref: Any) -> Any:
         return int(float(value))
     if isinstance(ref, float):
         return float(value)
+    if isinstance(ref, tuple) or (ref is None and value[:1] in "[("):  # info_track_keys=[a,b]
+        return tuple(v for v in value.strip("[]()").split(",") if v)
     if ref is None:
         try:
             f = float(value)

@@ -1,11 +1,20 @@
 """Model registry of the port (name → class, as ``algo.act_class`` / ``algo.cri_class`` name them)."""
 
-from pql_tpu_torch.models.mlp import DistributionalDoubleQ, DoubleQ, MLPNet, TanhMLPPolicy
+from pql_tpu_torch.models.mlp import (
+    DistributionalDoubleQ,
+    DoubleQ,
+    DoubleQBatchNorm,
+    MLPNet,
+    TanhDiagGaussianMLPPolicy,
+    TanhMLPPolicy,
+)
 
 MODEL_REGISTRY = {
     "MLPNet": MLPNet,
     "TanhMLPPolicy": TanhMLPPolicy,
+    "TanhDiagGaussianMLPPolicy": TanhDiagGaussianMLPPolicy,
     "DoubleQ": DoubleQ,
+    "DoubleQBatchNorm": DoubleQBatchNorm,
     "DistributionalDoubleQ": DistributionalDoubleQ,
 }
 
@@ -16,4 +25,5 @@ def get_model(name: str):
     return MODEL_REGISTRY[name]
 
 
-__all__ = ["MODEL_REGISTRY", "get_model", "MLPNet", "TanhMLPPolicy", "DoubleQ", "DistributionalDoubleQ"]
+__all__ = ["MODEL_REGISTRY", "get_model", "MLPNet", "TanhMLPPolicy", "TanhDiagGaussianMLPPolicy", "DoubleQ",
+           "DoubleQBatchNorm", "DistributionalDoubleQ"]

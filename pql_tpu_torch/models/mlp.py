@@ -1,8 +1,11 @@
-"""MLP policy and critics (port of pql_tpu/models/mlp.py:35-96,200-263).
+"""MLP policies and critics (port of pql_tpu/models/mlp.py:35-96,136-160,200-263).
 
-- MLPNet                — ELU trunk, hidden [512, 256, 128]
-- TanhMLPPolicy         — deterministic tanh policy
+- MLPNet                — ELU trunk, hidden [512, 256, 128]; with
+  ``use_batchnorm`` a flax-rule ``BatchNorm`` after each hidden Linear
+- TanhMLPPolicy         — deterministic tanh policy (PQL, DDPG, CrossQ)
+- TanhDiagGaussianMLPPolicy — SAC's squashed Gaussian, log_std in [-5, 5]
 - DoubleQ               — twin Q heads on concat(obs, act), ``q_min``
+- DoubleQBatchNorm      — CrossQ's twin Q heads with BatchNorm
 - DistributionalDoubleQ — twin C51 heads (softmax over num_atoms), ``q_min``
   over a linspace support
 
@@ -21,6 +24,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from pql_tpu_torch.models.distributions import squashed_gaussian_sample_logprob
 
 DEFAULT_HIDDEN = (512, 256, 128)
 
@@ -43,18 +48,69 @@ class Linear(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+class BatchNorm(nn.Module):
+    """flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5) over the batch axis,
+    whose rules differ from torch.nn.BatchNorm1d's:
+
+    - ``train=True`` normalizes by the batch's mean and its biased variance
+      E[x²] − E[x]² (clamped at 0), through which gradients flow; ``False``
+      by the running ``mean`` and ``var``;
+    - a train-mode pass does not touch the running statistics: it keeps its
+      batch's (mean, var) in ``batch_stats``, and ``commit`` folds them in as
+      running = 0.9 · running + 0.1 · batch, the biased variance included
+      (torch's ``momentum`` weighs the batch, and it keeps the unbiased
+      variance). A pass whose statistics are discarded, as CrossQ's actor
+      pass, is not committed.
+
+    Statistics and the affine map are fp32; the output has the compute dtype."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.momentum, self.eps, self.compute_dtype = momentum, eps, dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+        self.batch_stats: tuple[torch.Tensor, torch.Tensor] | None = None
+
+    def forward(self, x, train: bool = False):
+        x = x.float()
+        if train:
+            mean = x.mean(0)
+            var = torch.clamp(torch.mean(x * x, 0) - mean * mean, min=0.0)
+            self.batch_stats = (mean.detach(), var.detach())
+        else:
+            mean, var = self.mean, self.var
+        return ((x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias).to(self.compute_dtype)
+
+    @torch.no_grad()
+    def commit(self) -> None:
+        """Fold the last train-mode pass's batch statistics into the running ones."""
+        mean, var = self.batch_stats
+        m = self.momentum
+        self.mean.copy_(m * self.mean + (1 - m) * mean)
+        self.var.copy_(m * self.var + (1 - m) * var)
+
+
 class MLPNet(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, hidden: Sequence[int] = DEFAULT_HIDDEN,
-                 gen: torch.Generator | None = None, dtype: torch.dtype = torch.float32):
+                 gen: torch.Generator | None = None, dtype: torch.dtype = torch.float32,
+                 use_batchnorm: bool = False):
         super().__init__()
         dims = [in_dim, *hidden, out_dim]
         self.layers = nn.ModuleList(
             Linear(dims[i], dims[i + 1], gen, dtype) for i in range(len(dims) - 1)
         )
+        # flax names these BatchNorm_i, beside TorchLinear_i (utils/convert.py)
+        self.norms = nn.ModuleList(BatchNorm(h, dtype=dtype) for h in hidden) if use_batchnorm else None
 
-    def forward(self, x):
-        for layer in self.layers[:-1]:
-            x = F.elu(layer(x))
+    def forward(self, x, train: bool = False):
+        for i, layer in enumerate(self.layers[:-1]):
+            x = layer(x)
+            if self.norms is not None:
+                x = self.norms[i](x, train)
+            x = F.elu(x)
         return self.layers[-1](x).float()
 
 
@@ -67,6 +123,31 @@ class TanhMLPPolicy(nn.Module):
 
     def forward(self, obs):
         return torch.tanh(self.net(obs))
+
+
+class TanhDiagGaussianMLPPolicy(nn.Module):
+    """SAC's squashed Gaussian: the trunk emits (mu, log_std), log_std
+    clamped to [log_std_min, log_std_max]."""
+
+    def __init__(self, obs_dim: int, act_dim: int, hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 gen: torch.Generator | None = None, dtype: torch.dtype = torch.float32,
+                 log_std_min: float = -5.0, log_std_max: float = 5.0):
+        super().__init__()
+        self.act_dim = act_dim
+        self.log_std_min, self.log_std_max = log_std_min, log_std_max
+        self.net = MLPNet(obs_dim, 2 * act_dim, hidden, gen, dtype)
+
+    def forward(self, obs):
+        mu, log_std = torch.chunk(self.net(obs), 2, dim=-1)
+        return mu, torch.clamp(log_std, self.log_std_min, self.log_std_max)
+
+    def mean_action(self, obs):
+        return torch.tanh(self(obs)[0])
+
+    def sample(self, obs, normal):
+        """(tanh(u), logp [..., 1]) with u = mu + std · normal."""
+        mu, log_std = self(obs)
+        return squashed_gaussian_sample_logprob(normal, mu, log_std)
 
 
 class DoubleQ(nn.Module):
@@ -83,6 +164,31 @@ class DoubleQ(nn.Module):
     def q_min(self, obs, act):
         q1, q2 = self(obs, act)
         return torch.minimum(q1, q2)
+
+
+class DoubleQBatchNorm(nn.Module):
+    """CrossQ's critic: twin Q heads with a ``BatchNorm`` after each hidden
+    layer and no target net; ``train=True`` normalizes by the batch."""
+
+    def __init__(self, obs_dim: int, act_dim: int, hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 gen: torch.Generator | None = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.net_q1 = MLPNet(obs_dim + act_dim, 1, hidden, gen, dtype, use_batchnorm=True)
+        self.net_q2 = MLPNet(obs_dim + act_dim, 1, hidden, gen, dtype, use_batchnorm=True)
+
+    def forward(self, obs, act, train: bool = False):
+        x = torch.cat([obs, act], dim=-1)
+        return self.net_q1(x, train), self.net_q2(x, train)
+
+    def q_min(self, obs, act, train: bool = False):
+        q1, q2 = self(obs, act, train)
+        return torch.minimum(q1, q2)
+
+    def commit_batch_stats(self) -> None:
+        """Fold the last train-mode pass's statistics into every BatchNorm."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.commit()
 
 
 class DistributionalDoubleQ(nn.Module):

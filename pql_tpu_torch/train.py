@@ -1,4 +1,5 @@
-"""Training entry point of the port (scripts/train.py::train_pql, :126-245).
+"""Training entry point of the port (scripts/train.py: ``train_pql``, :126-245,
+and ``train_baseline``, :260-314, chosen by ``algo.name`` as at :328-331).
 
     python -m pql_tpu_torch.train algo=pql_d task=Cartpole num_envs=4096 max_time=600
     python -m pql_tpu_torch.train algo=pql_d task=Cartpole num_envs=4096 max_step=20000000 \\
@@ -7,8 +8,11 @@
         algo.memory_size=100000 max_step=20000 --device=cpu
     python -m pql_tpu_torch.train algo=pql_d task=AllegroHand num_envs=16384 \\
         algo.memory_size=2000000 max_time=600
+    python -m pql_tpu_torch.train algo=ddpg task=Cartpole num_envs=16 algo.batch_size=1024 \\
+        algo.memory_size=1000000 max_time=600
+    python -m pql_tpu_torch.train algo=sac task=Ant num_envs=4096 max_time=600   # or algo=crossq
 
-A run, as the JAX package's:
+A PQL run, as the JAX package's:
 
 - startup: ``artifact=`` starts from a weights-only snapshot; then, if
   ``checkpoint_dir/state`` holds a full checkpoint, the run resumes from it
@@ -29,6 +33,15 @@ A run, as the JAX package's:
 - with ``profile_dir``, a ``torch.profiler`` Chrome trace of
   ``profile_iters`` iterations from iteration 2 on.
 
+A DDPG, SAC or CrossQ run (``train_baseline``), as the JAX package's: the
+same start (artifact, full-state resume, else warm-up), then one
+``train_iter`` (explore ``horizon_len`` steps, ``update_times`` updates) per
+iteration until the stop check; every ``algo.log_freq`` iterations a
+metrics record with the measured ``speed/env_steps_per_s``; every
+``algo.eval_freq`` iterations an eval run at once on the live actor and
+normalizer, a new best ``eval/return`` saving them to ``run_dir/best_model``;
+the periodic full checkpoint as above. ``env_steps`` counts total env steps.
+
 Records go to ``logging.out_dir/run_name/metrics.jsonl`` and the console
 (``utils/logging.py``). The run is on the card unless ``--device=cpu``.
 """
@@ -42,6 +55,7 @@ import time
 
 import torch
 
+from pql_tpu_torch.algos import get_algo
 from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import parse_cli, to_dict
 from pql_tpu_torch.envs import make_eval_env
@@ -139,13 +153,7 @@ def train_pql(cfg, logger: RunLogger, device: str | torch.device = "cuda"):
     """The PQL loop; returns the agent and its final state."""
     agent = PQL(cfg, device)
     dev = agent.device
-    state = agent.init()
-    if cfg.artifact:  # weights-only start (reference model_util.py:9-21)
-        state = restore_into_state(state, load_model_snapshot(cfg.artifact))
-    state, resumed = maybe_resume_full_state(cfg, state)
-
-    evaluator = Evaluator(cfg, make_eval_env(cfg), agent.eval_actor_apply, dev)
-    eval_gen = torch.Generator(device=dev).manual_seed(cfg.seed + EVAL_SEED_OFFSET)
+    state, resumed, evaluator, eval_gen = _start(cfg, agent, agent.init(), dev)
     if resumed:
         print(f"resumed the full state from {os.path.join(cfg.checkpoint_dir, 'state')} at env step "
               f"{state.env_steps * cfg.num_envs} (no warm-up)", flush=True)
@@ -230,6 +238,63 @@ def train_pql(cfg, logger: RunLogger, device: str | torch.device = "cuda"):
     return agent, state
 
 
+def _start(cfg, agent, state, dev):
+    """Artifact, then full-state resume, then warm-up unless resumed; the
+    evaluator and its generator. Returns (state, resumed, evaluator, eval_gen)."""
+    if cfg.artifact:  # weights-only start (reference model_util.py:9-21)
+        state = restore_into_state(state, load_model_snapshot(cfg.artifact))
+    state, resumed = maybe_resume_full_state(cfg, state)
+    evaluator = Evaluator(cfg, make_eval_env(cfg), agent.eval_actor_apply, dev)
+    eval_gen = torch.Generator(device=dev).manual_seed(cfg.seed + EVAL_SEED_OFFSET)
+    return state, resumed, evaluator, eval_gen
+
+
+def train_baseline(cfg, logger: RunLogger, device: str | torch.device = "cuda"):
+    """The synchronous DDPG / SAC / CrossQ loop (scripts/train.py:260-314);
+    returns the agent and its final state."""
+    agent = get_algo(cfg.algo.name)(cfg, device)
+    dev = agent.device
+    state, resumed, evaluator, eval_gen = _start(cfg, agent, agent.init(), dev)
+    if resumed:
+        print(f"resumed the full state from {os.path.join(cfg.checkpoint_dir, 'state')} at env step "
+              f"{state.env_steps} (no warm-up)", flush=True)
+    else:
+        state, _ = agent.warmup(state)
+
+    best_ret = float("-inf")
+    it = _resumed_iter(cfg, state, resumed)  # env_steps counts total env steps
+    log_gate = _Every(cfg.algo.log_freq, it)
+    eval_gate = _Every(cfg.algo.eval_freq, it)
+    ckpt_gate = _checkpoint_gate(cfg, it)
+    last_log, last_steps = time.time(), state.env_steps
+    profiler = _ProfilerHook(cfg, dev)
+    try:
+        while True:
+            state, metrics = agent.train_iter(state)
+            it += 1
+            steps = state.env_steps  # a Python integer: the gates never wait for the device
+            profiler.tick(it)
+            if log_gate(it):
+                host = {k: float(v) for k, v in metrics.items()}
+                now = time.time()
+                host["speed/env_steps_per_s"] = (steps - last_steps) / max(now - last_log, 1e-9)
+                last_log, last_steps = now, steps
+                logger.log(host, step=steps)
+            if eval_gate(it):  # synchronous, on the live actor and normalizer
+                eval_metrics = evaluator.eval_policy(state.actor, state.obs_rms, eval_gen)
+                logger.log(eval_metrics, step=steps)
+                if eval_metrics["eval/return"] > best_ret and logger.run_dir:
+                    best_ret = eval_metrics["eval/return"]
+                    save_model_snapshot(os.path.join(logger.run_dir, "best_model"), state.actor, state.critic,
+                                        state.obs_rms)
+            _maybe_full_checkpoint(cfg, ckpt_gate, it, state)
+            if evaluator.check_if_should_stop(steps):
+                break
+    finally:
+        profiler.close()
+    return agent, state
+
+
 def main(argv: list[str]) -> None:
     device = "cuda"
     overrides = []
@@ -241,9 +306,11 @@ def main(argv: list[str]) -> None:
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device found (pass --device=cpu to run on the CPU)")
     cfg = parse_cli(overrides)
+    get_algo(cfg.algo.name)  # an unported algo.name fails before the run directory is made
+    train = train_pql if cfg.algo.name == "PQL" else train_baseline
     logger = RunLogger(cfg, to_dict(cfg))
     try:
-        train_pql(cfg, logger, device)
+        train(cfg, logger, device)
     finally:
         logger.close()
 

@@ -1,4 +1,4 @@
-"""Carry weights and PQL state from the JAX package into the port.
+"""Carry weights and PQL, DDPG, SAC and CrossQ states from the JAX package into the port.
 
 Inputs are plain nested dicts of numpy arrays (no JAX object crosses), so
 this module imports nothing of JAX:
@@ -10,7 +10,9 @@ this module imports nothing of JAX:
   ``[out, in]``.
 - ``pql_state_from_jax(tree, layout)`` converts a whole PQL state. ``tree``
   holds, as numpy: ``actor_params``, ``critic_params``, ``critic_target``
-  (flax params as above); ``actor_opt`` and ``critic_opt`` as
+  (flax params as above; a CrossQ critic's ``BatchNorm_i`` ``scale``/``bias``
+  map onto ``norms.i``, its ``batch_stats`` ``mean``/``var`` onto the
+  running buffers); ``actor_opt`` and ``critic_opt`` as
   ``{'mu', 'nu'}`` (flax params layout) and ``'count'``; ``obs_rms``
   ``{'mean', 'var', 'count'}``; ``env_state`` ``{'state': {field: [E]},
   'time': [E]}``; ``obs``; ``nstep`` ``{'obs', 'action', 'reward',
@@ -22,6 +24,16 @@ this module imports nothing of JAX:
   out of its packed rows, so its lane padding is dropped.
 - ``load_pql_state(state, converted)`` writes such a conversion into a
   port ``PQLState`` (made by ``PQL.init``) in place, on its device.
+- ``offpolicy_state_from_jax(tree, layout)`` / ``load_offpolicy_state`` do
+  the same for the baselines' state: ``actor_params``, ``critic_params``,
+  ``actor_target`` and ``critic_target`` where the state has them (flax
+  trees), ``actor_opt``/``critic_opt``, ``obs_rms``, ``env_state``, ``obs``,
+  ``nstep``, ``replay`` as above; ``stats``, the JAX ``EpisodeStats`` as
+  ``{current_returns, current_lengths, return_tracker, step_tracker,
+  success_tracker, detailed_acc, detailed_tracker, info_acc, info_tracker}``
+  (a tracker ``{'ring', 'ptr', 'count'}``); ``env_steps``, ``update_count``;
+  SAC's ``log_alpha`` and ``alpha_opt`` ``{'mu', 'nu', 'count'}`` (arrays
+  of shape [1]); CrossQ's ``batch_stats``.
 - ``snapshot_from_jax(tree, actor, critic)`` converts the ``{actor, critic,
   obs_rms}`` payload of the JAX ``save_model_snapshot`` (read from its orbax
   directory on the JAX side, as numpy) into the port's weights-only
@@ -41,12 +53,15 @@ import torch
 def _module_name(flax_name: str) -> str:
     if flax_name == "MLPNet_0":
         return "net"
-    m = re.fullmatch(r"TorchLinear_(\d+)", flax_name)
-    return f"layers.{m.group(1)}" if m else flax_name
+    m = re.fullmatch(r"(TorchLinear|BatchNorm)_(\d+)", flax_name)
+    if m:
+        return f"{'layers' if m.group(1) == 'TorchLinear' else 'norms'}.{m.group(2)}"
+    return flax_name
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """Flax params (nested dicts of numpy) → the port module's state_dict."""
+    """Flax params or batch_stats (nested dicts of numpy) → the port module's
+    state_dict entries."""
     tree = tree.get("params", tree)
     out = {}
 
@@ -56,8 +71,8 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
                 walk(val, prefix + [_module_name(key)])
             elif key == "kernel":
                 out[".".join(prefix + ["weight"])] = torch.from_numpy(np.array(np.asarray(val).T))
-            elif key == "bias":
-                out[".".join(prefix + ["bias"])] = torch.from_numpy(np.array(val))
+            elif key in ("bias", "scale", "mean", "var"):
+                out[".".join(prefix + [key])] = torch.from_numpy(np.array(val))
             else:
                 raise KeyError(f"unexpected flax leaf {'/'.join(prefix + [key])}")
 
@@ -143,17 +158,12 @@ def _tensor(x, dtype=None) -> torch.Tensor:
     return t if dtype is None else t.to(dtype)
 
 
-def pql_state_from_jax(tree: dict, layout) -> dict:
-    """A whole JAX PQL state (as numpy, see the module doc) → port tensors."""
+def _env_parts_from_jax(tree: dict, layout) -> dict:
+    """The obs normalizer, env state, obs, n-step FIFO and replay of a JAX state."""
     data = np.asarray(tree["replay"]["data"])
     fields = {name: _tensor(data[..., s : s + d]) for name, s, d in layout}
     nstep = tree["nstep"]
     return dict(
-        actor=params_from_jax(tree["actor_params"]),
-        critic=params_from_jax(tree["critic_params"]),
-        critic_target=params_from_jax(tree["critic_target"]),
-        actor_opt=_opt_from_jax(tree["actor_opt"]),
-        critic_opt=_opt_from_jax(tree["critic_opt"]),
         obs_rms={k: _tensor(tree["obs_rms"][k], torch.float32) for k in ("mean", "var", "count")},
         env_state=dict(
             state={k: _tensor(v) for k, v in tree["env_state"]["state"].items()},
@@ -167,6 +177,18 @@ def pql_state_from_jax(tree: dict, layout) -> dict:
         replay=dict(
             fields=fields, ptr=int(tree["replay"]["ptr"]), total_writes=int(tree["replay"]["total_writes"])
         ),
+    )
+
+
+def pql_state_from_jax(tree: dict, layout) -> dict:
+    """A whole JAX PQL state (as numpy, see the module doc) → port tensors."""
+    return dict(
+        actor=params_from_jax(tree["actor_params"]),
+        critic=params_from_jax(tree["critic_params"]),
+        critic_target=params_from_jax(tree["critic_target"]),
+        actor_opt=_opt_from_jax(tree["actor_opt"]),
+        critic_opt=_opt_from_jax(tree["critic_opt"]),
+        **_env_parts_from_jax(tree, layout),
         cur_returns=_tensor(tree["cur_returns"]),
         cur_lengths=_tensor(tree["cur_lengths"]),
         trackers={
@@ -177,20 +199,58 @@ def pql_state_from_jax(tree: dict, layout) -> dict:
     )
 
 
-@torch.no_grad()
-def load_pql_state(state, conv: dict) -> None:
-    """Write a ``pql_state_from_jax`` conversion into a port PQLState in place."""
-    for name, opt_name in (("actor", "actor_opt"), ("critic", "critic_opt")):
-        module, opt = getattr(state, name), getattr(state, opt_name)
-        module.load_state_dict(conv[name])
-        o = conv[opt_name]
-        for pname, p in module.named_parameters():
-            opt.state[p] = dict(
-                step=torch.tensor(float(o["step"]), dtype=torch.float32),
-                exp_avg=o["exp_avg"][pname].to(p.device).clone(),
-                exp_avg_sq=o["exp_avg_sq"][pname].to(p.device).clone(),
-            )
-    state.critic_target.load_state_dict(conv["critic_target"])
+def _tracker_from_jax(t: dict) -> dict:
+    return dict(ring=_tensor(t["ring"]), ptr=torch.tensor(int(t["ptr"])), count=torch.tensor(int(t["count"])))
+
+
+def _stats_from_jax(st: dict) -> dict:
+    """A JAX EpisodeStats (numpy) → ``EpisodeStats.state_dict``'s layout."""
+    acc = {"returns": _tensor(st["current_returns"]), "lengths": _tensor(st["current_lengths"])}
+    trackers = {n: _tracker_from_jax(st[f"{n}_tracker"]) for n in ("return", "step", "success")}
+    for kind in ("detailed", "info"):
+        acc.update({f"{kind}/{k}": _tensor(v) for k, v in st.get(f"{kind}_acc", {}).items()})
+        trackers.update({f"{kind}/{k}": _tracker_from_jax(t) for k, t in st.get(f"{kind}_tracker", {}).items()})
+    return dict(accumulators=acc, trackers=trackers)
+
+
+def offpolicy_state_from_jax(tree: dict, layout) -> dict:
+    """A whole JAX DDPG / SAC / CrossQ state (as numpy, see the module doc) → port tensors."""
+    out = dict(
+        actor=params_from_jax(tree["actor_params"]),
+        critic=params_from_jax(tree["critic_params"]),
+        actor_opt=_opt_from_jax(tree["actor_opt"]),
+        critic_opt=_opt_from_jax(tree["critic_opt"]),
+        **_env_parts_from_jax(tree, layout),
+        stats=_stats_from_jax(tree["stats"]),
+        counters={k: int(tree[k]) for k in ("env_steps", "update_count")},
+    )
+    for name in ("actor_target", "critic_target"):
+        if name in tree:
+            out[name] = params_from_jax(tree[name])
+    if "batch_stats" in tree:
+        out["critic"].update(params_from_jax(tree["batch_stats"]))
+    if "log_alpha" in tree:
+        o = tree["alpha_opt"]
+        out["log_alpha"] = _tensor(tree["log_alpha"], torch.float32)
+        out["alpha_opt"] = dict(exp_avg=_tensor(o["mu"]), exp_avg_sq=_tensor(o["nu"]), step=int(o["count"]))
+    return out
+
+
+def _adam_state(opt: torch.optim.Optimizer, p: torch.Tensor, exp_avg, exp_avg_sq, step: int) -> None:
+    opt.state[p] = dict(
+        step=torch.tensor(float(step), dtype=torch.float32),
+        exp_avg=exp_avg.to(p.device).clone(),
+        exp_avg_sq=exp_avg_sq.to(p.device).clone(),
+    )
+
+
+def _load_module_opt(module: torch.nn.Module, opt: torch.optim.Optimizer, sd: dict, o: dict) -> None:
+    module.load_state_dict(sd)
+    for pname, p in module.named_parameters():
+        _adam_state(opt, p, o["exp_avg"][pname], o["exp_avg_sq"][pname], o["step"])
+
+
+def _load_env_parts(state, conv: dict) -> None:
     dev = state.obs.device
     for k in ("mean", "var", "count"):
         getattr(state.obs_rms, k).copy_(conv["obs_rms"][k])
@@ -204,6 +264,16 @@ def load_pql_state(state, conv: dict) -> None:
     for name, s, d in replay.layout:
         replay.data[..., s : s + d] = conv["replay"]["fields"][name].to(dev, replay.data.dtype)
     replay.ptr, replay.total_writes = conv["replay"]["ptr"], conv["replay"]["total_writes"]
+
+
+@torch.no_grad()
+def load_pql_state(state, conv: dict) -> None:
+    """Write a ``pql_state_from_jax`` conversion into a port PQLState in place."""
+    _load_module_opt(state.actor, state.actor_opt, conv["actor"], conv["actor_opt"])
+    _load_module_opt(state.critic, state.critic_opt, conv["critic"], conv["critic_opt"])
+    state.critic_target.load_state_dict(conv["critic_target"])
+    _load_env_parts(state, conv)
+    dev = state.obs.device
     state.cur_returns = conv["cur_returns"].to(dev)
     state.cur_lengths = conv["cur_lengths"].to(dev)
     for name, t in conv["trackers"].items():
@@ -211,5 +281,26 @@ def load_pql_state(state, conv: dict) -> None:
         tracker.ring.copy_(t["ring"])
         tracker.ptr.fill_(t["ptr"])
         tracker.count.fill_(t["count"])
+    for k, v in conv["counters"].items():
+        setattr(state, k, v)
+
+
+@torch.no_grad()
+def load_offpolicy_state(state, conv: dict) -> None:
+    """Write an ``offpolicy_state_from_jax`` conversion into a port
+    OffPolicyState / SACState in place. A state without an actor target
+    (``no_tgt_actor``: the JAX one equals the actor) or a critic target
+    (CrossQ: the JAX one is unused) ignores the converted one."""
+    _load_module_opt(state.actor, state.actor_opt, conv["actor"], conv["actor_opt"])
+    _load_module_opt(state.critic, state.critic_opt, conv["critic"], conv["critic_opt"])
+    for name in ("actor_target", "critic_target"):
+        if getattr(state, name) is not None:
+            getattr(state, name).load_state_dict(conv[name])
+    _load_env_parts(state, conv)
+    state.stats.load_state_dict(conv["stats"])
+    if getattr(state, "log_alpha", None) is not None:
+        state.log_alpha.copy_(conv["log_alpha"])
+        o = conv["alpha_opt"]
+        _adam_state(state.alpha_opt, state.log_alpha, o["exp_avg"], o["exp_avg_sq"], o["step"])
     for k, v in conv["counters"].items():
         setattr(state, k, v)

@@ -16,19 +16,23 @@ from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 from chip_smoke import (
+    BASELINE_ALGOS,
     C51_CASES,
+    DDPG_THRESHOLD,
     HAND_MAX_FLIPS,
     HAND_TASKS,
     LEARNING_THRESHOLD,
     PHYS_MAX_FLIPS,
     RIGID_TASKS,
     c51_case,
+    baseline_reference,
     c51_logit_scale,
     envs_beyond_tol,
     learning_gate_return,
     state_diffs,
     step_tol,
 )
+from pql_tpu_torch.algos import get_algo
 from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import make_config
 from pql_tpu_torch.envs import make_eval_env, make_task
@@ -370,3 +374,57 @@ def test_evaluator_card_matches_cpu(cuda):
     got = ev.eval_policy(actor, rms, draws={k: v.to(cuda) for k, v in draws.items()})
     for k in want:
         assert got[k] == pytest.approx(want[k], rel=1e-5), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", BASELINE_ALGOS)
+@pytest.mark.parametrize("task", ["Cartpole", "Ant"])
+def test_baselines_iterate_on_card(cuda, algo, task):
+    """Warm-up and three iterations on the card: exact counters (8 updates
+    and E env steps per iteration, one replay write per step), finite losses
+    and episode statistics."""
+    E = 256 if task == "Cartpole" else 64
+    cfg = make_config(algo, task=task, num_envs=E, algo__batch_size=256, algo__memory_size=4096, algo__warm_up=8)
+    agent = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s, _ = agent.warmup(agent.init(seed=0))
+    for _ in range(3):
+        s, m = agent.train_iter(s)
+        assert all(bool(torch.isfinite(v)) for v in m.values()), m
+    assert (s.update_count, s.env_steps, s.replay.total_writes) == (24, (8 + 3) * E, 8 + 3)
+    assert s.replay.data.device.type == "cuda" and s.stats.return_tracker.ring.device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_baselines_on_card_match_cpu(cuda):
+    """chip_smoke's baseline_reference: two iterations of DDPG, SAC and
+    CrossQ on the card and the CPU from the same state and draws (it raises
+    on a difference beyond its tolerances)."""
+    out = baseline_reference(cuda)
+    assert set(out["runs"]) == set(BASELINE_ALGOS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo,task,E", [("ddpg", "Cartpole", 256), ("ddpg", "Ant", 64), ("sac", "Cartpole", 256),
+                                         ("crossq", "Cartpole", 256)])
+def test_baseline_kill_and_resume_bitwise_on_card(cuda, tmp_path, algo, task, E):
+    """As the PQL case above, for the baselines' state."""
+    cfg = make_config(algo, task=task, num_envs=E, algo__batch_size=256, algo__memory_size=4096, algo__warm_up=8)
+    agent = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s, _ = agent.warmup(agent.init(seed=0))
+    s, _ = agent.train_iter(s)
+    checkpoint.save_checkpoint(str(tmp_path / "state"), s)
+    for _ in range(2):
+        s, _ = agent.train_iter(s)
+    agent2 = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s2 = checkpoint.load_checkpoint(str(tmp_path / "state"), agent2.init(seed=7))
+    for _ in range(2):
+        s2, _ = agent2.train_iter(s2)
+    assert state_diffs(s, s2) == []
+
+
+@pytest.mark.gpu
+def test_ddpg_learning_gate_on_card(cuda):
+    """The JAX package's DDPG gate (tests/test_learning.py:62-84) on the
+    card: seed 0, the best eval return at iterations 200, 225 and 250 > 400
+    (``chip_smoke.DDPG_EVALS``)."""
+    assert learning_gate_return("ddpg", seed=0, device=cuda) > DDPG_THRESHOLD

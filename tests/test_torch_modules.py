@@ -97,7 +97,7 @@ def test_cfg_parse_cli_matches(argv):
 
 def test_cfg_rejects_knobs_the_port_lacks():
     with pytest.raises(AttributeError):
-        tcfg.parse_cli(["algo=pql", "algo.update_times=4"])  # a DDPG knob
+        tcfg.parse_cli(["algo=pql", "algo.lambda_gae_adv=0.9"])  # a PPO knob
     with pytest.raises(ValueError):
         tcfg.parse_cli(["algo=ppo"])
 
