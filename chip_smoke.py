@@ -2,6 +2,7 @@
 """Quickest proof that the PyTorch/CUDA port starts on the GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --entry   # only the on-policy CLI runs (ENTRY_RUNS)
 
 Needs one CUDA card and nvcc; exits nonzero without them. Phases, one JSON
 line each:
@@ -73,10 +74,34 @@ line each:
    bitwise equal to an uninterrupted one;
 18. ddpg_learning_gate — the JAX package's DDPG gate (tests/test_learning.py:
    62-84, ``DDPG_GATE``): seed 0's best eval return at iterations 200, 225
-   and 250 must exceed 400; seed 1 is printed.
+   and 250 must exceed 400; seed 1 is printed;
+19. ppo_reference — two iterations of PPO (value_norm), IPPO (two pairs, and
+   one under same_policy) and MAPPO at a small size on the card and on the
+   CPU, same state and draws: parameter steps within 1%, losses 1e-3;
+20. ppo_main_path — ``algo=ppo task=Ant task_param=true`` (4096 envs,
+   horizon 16, batch 32768, 4 epochs) and ``algo=ppo task=FrankaCubeStack
+   task_param=true`` (8192 envs, horizon 32, batch 16384, 5 epochs), hidden
+   [512, 256, 128], fp32: updates = epochs × minibatches × iterations, H·E
+   env steps per iteration, finite losses and trackers; ms/iter,
+   env-steps/s, the sim graph's device ms per iteration against the
+   learner's, the busy share of a profiled window, peak memory;
+21. franka_physics_check — FrankaCubeStack at 8192 envs, as physics_check
+   (``FRANKA_STEP_TOL``, ``FRANKA_MAX_FLIPS``);
+22. two_agent_main_path — ``algo=ippo`` and ``algo=mappo`` on
+   BimanualReacher @4096 and ``algo=ippo algo.same_policy=true`` on
+   BimanualReacherSym @4096, as ppo_main_path; the Sym task's mirrored share
+   within 0.5 ± 0.05;
+23. ppo_entry_path — ``train.main algo=ppo task=Cartpole`` @4096: no
+   warm-up, evals at iterations 4 and 8, the best model and checkpoint; the
+   resumed run starts at iteration 9 and ends bitwise equal to an
+   uninterrupted one;
+24. ippo_learning_gate — IPPO seed 0 on the JAX package's two-agent quick
+   check (``IPPO_GATE``: BimanualReacher, 1024 envs, batch 4096):
+   train/success_rate after 50 iterations must reach 0.95.
 
-Each main path, and each of phases 11, 12, 14 and 16-18, resets the kernels'
-launch counts just before it drives the port and reads them just after. Then the ``{"kernels": [...]}`` line, the nvidia-smi
+Each main path, and each of phases 11, 12, 14, 16-18 and 20-24, resets the
+kernels' launch counts just before it drives the port and reads them just
+after (0 ``c51_td_target`` launches on every on-policy path). Then the ``{"kernels": [...]}`` line, the nvidia-smi
 line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits nonzero and prints no result. It imports nothing of JAX.
@@ -132,6 +157,14 @@ HAND_STEP_TOL = {"q": (1e-4, 1e-5), "qd": (1e-4, 1e-3), "contact": (1e-4, 1e-5),
                  "reward": (1e-4, 1e-5), "success": (0.0, 0.0)}
 HAND_CUBE_W_ATOL = 1e-2
 HAND_MAX_FLIPS = 8
+# FrankaCubeStack's, card against CPU: STEP_TOL on the arm and the reward,
+# the cubes as positions, the grasp and success flags exact; at most
+# FRANKA_MAX_FLIPS of the 8192 envs may differ beyond them (a grasp test
+# within rounding of its 0.05 range may take the other branch), each reported.
+FRANKA_STEP_TOL = {"q": (1e-4, 1e-5), "qd": (1e-4, 1e-4), "cube_a": (1e-4, 1e-5), "cube_b": (1e-4, 1e-5),
+                   "grasped": (0.0, 0.0), "reward": (1e-4, 1e-5), "success": (0.0, 0.0)}
+FRANKA_ENVS = 8192
+FRANKA_MAX_FLIPS = 8
 HAND_WARM_ITERS = 2  # untimed iterations after the warm-up
 HAND_BLOCKS = 3  # timed blocks of HAND_BLOCK_ITERS iterations
 HAND_BLOCK_ITERS = 3
@@ -160,10 +193,20 @@ DDPG_ITERS = 250
 DDPG_EVALS = (200, 225, 250)
 DDPG_THRESHOLD = 400.0
 DDPG_GATE_SEEDS = (0, 1)  # seed 0 is checked, seed 1 printed
+# the JAX package's two-agent quick check (its verify notes: algo=ippo
+# task=BimanualReacher num_envs=1024 algo.batch_size=4096, "train/success_rate
+# should reach ~1.0"): PPO's preset otherwise, horizon 16, 4 epochs
+IPPO_GATE = dict(task="BimanualReacher", num_envs=1024, eval_num_envs=32, algo__batch_size=4096,
+                 logging__mode="off")
+# read at iteration 50, where the CPU traces of both packages (seeds 0-2,
+# tools/gate_trace.py --algo=ippo; PERF.md §6) read success rates 0.99-1.00
+IPPO_ITERS = 50
+IPPO_THRESHOLD = 0.95
 # algo -> (configuration, iterations, threshold, the iterations whose best eval return the gate reads)
 GATES = {"pql": (LEARNING_GATE, LEARNING_ITERS, LEARNING_THRESHOLD, (LEARNING_ITERS,)),
          "pql_d": (LEARNING_GATE, LEARNING_ITERS, LEARNING_THRESHOLD, (LEARNING_ITERS,)),
-         "ddpg": (DDPG_GATE, DDPG_ITERS, DDPG_THRESHOLD, DDPG_EVALS)}
+         "ddpg": (DDPG_GATE, DDPG_ITERS, DDPG_THRESHOLD, DDPG_EVALS),
+         "ippo": (IPPO_GATE, IPPO_ITERS, IPPO_THRESHOLD, (IPPO_ITERS,))}
 BASELINE_ALGOS = ("ddpg", "sac", "crossq")
 BASELINE_REF = dict(num_envs=64, algo__batch_size=256, algo__memory_size=64 * 64, algo__warm_up=8)
 # the JAX bench's cartpole_ddpg_16 (bench.py:156-164): the Cartpole baseline cell and the entry point's
@@ -173,6 +216,26 @@ BASELINE_ANT_DEPTH = (2, 2, 4, 1)  # 11 iterations after the warm-up
 BASELINE_ENTRY_ITERS = (24, 30)  # the first run stops after 24 iterations, the resumed one after 30
 BASELINE_ENTRY_EVAL_FREQ = 12  # evals at iterations 12, 24 (and 36 on no run)
 BASELINE_ENTRY_CKPT_FREQ = 12
+# the on-policy tier: small card-vs-CPU runs, then the full-width paths
+# (PPO's task presets; the two-agent presets at 4096 envs) as (argv, depth:
+# warm, blocks x iterations timed, profiled)
+PPO_REF = [("ppo", dict(task="Cartpole", algo__value_norm=True)), ("ippo", dict(task="BimanualReacher")),
+           ("ippo", dict(task="BimanualReacherSym", algo__same_policy=True)), ("mappo", dict(task="BimanualReacher"))]
+PPO_REF_SIZE = dict(num_envs=64, algo__horizon_len=8, algo__batch_size=128, algo__update_times=2)
+PPO_PATHS = [(("algo=ppo", "task=Ant", "task_param=true"), (1, 2, 2, 1)),
+             (("algo=ppo", "task=FrankaCubeStack", "task_param=true"), (1, 2, 2, 1))]
+TWO_AGENT_PATHS = [(("algo=ippo", "task=BimanualReacher", "num_envs=4096"), (2, 2, 3, 1)),
+                   (("algo=mappo", "task=BimanualReacher", "num_envs=4096"), (2, 2, 3, 1)),
+                   (("algo=ippo", "task=BimanualReacherSym", "num_envs=4096", "algo.same_policy=true"), (2, 2, 3, 1))]
+SYM_TRACKER_BAND = (0.45, 0.55)  # the mirrored share of BimanualReacherSym's episodes
+PPO_ENTRY_ARGV = ("algo=ppo", "task=Cartpole")  # 4096 envs, horizon 16, batch 32768, 4 epochs
+PPO_ENTRY_ITERS = (8, 12)  # the first run stops after 8 iterations, the resumed one after 12
+PPO_ENTRY_EVAL_FREQ = 4
+PPO_ENTRY_CKPT_FREQ = 4
+# ``python3 chip_smoke.py --entry``: the on-policy CLI runs, each through
+# ppo_entry_path, stopped after 4 iterations and resumed to 6 (an eval at 4)
+ENTRY_RUNS = [(("algo=ppo", "task=Ant", "task_param=true"), (4, 6)),
+              (("algo=ippo", "task=BimanualReacher", "num_envs=4096"), (4, 6))]
 SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
 
@@ -517,9 +580,11 @@ def graph_kernel_nodes(graph) -> tuple[int, int]:
 
 def step_tol(task) -> dict:
     """Per state field (and reward, flags): (rtol, atol), atol a float or a
-    per-column tensor; the rigid tasks' STEP_TOL or the hand's."""
+    per-column tensor; the rigid tasks' STEP_TOL, FrankaCubeStack's or the hand's."""
     import torch
 
+    if type(task).__name__ == "FrankaCubeStack":
+        return FRANKA_STEP_TOL
     if type(task).__name__ not in HAND_TASKS:
         return STEP_TOL
     tol = dict(HAND_STEP_TOL)
@@ -634,7 +699,7 @@ def physics_check(dev, tasks, E: int, max_flips: int) -> dict:
         out[name] = dict(
             envs=E, rollout_steps=PHYS_ROLL, rollout_s=roll_s, graphed_equals_eager_bitwise=True,
             card_vs_cpu_max_abs_err=max_err, card_vs_cpu_envs_beyond_tol=flips, terminated=int(g["terminated"].sum()),
-            engaged_pairs=int((g["contact"][:, 3::4] > 0.5).sum()),
+            engaged_pairs=int((g["contact"][:, 3::4] > 0.5).sum()) if "contact" in g else None,
             graph_kernel_ms=graph_kernel_ms, graph_replay_period_ms=statistics.median(period_ms),
             graph_replay_period_ms_timings=period_ms, graph_replay_host_ms=statistics.median(submit_ms),
             graph_build_s=graph.build_s, eager_wall_ms=statistics.median(eager_ms),
@@ -642,6 +707,8 @@ def physics_check(dev, tasks, E: int, max_flips: int) -> dict:
         )
         if "success" in g:
             out[name]["goals_reached"] = int(g["success"].sum())
+        if "grasped" in g:
+            out[name]["grasped"] = int(g["grasped"].sum())
     return out
 
 
@@ -1236,10 +1303,10 @@ def baseline_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
 
 
 def baseline_main_path(dev, smi: str) -> dict:
-    """DDPG on Cartpole @16 (the JAX bench's cartpole_ddpg_16) for 207
+    """DDPG on Cartpole @16 (the JAX bench's cartpole_ddpg_16) for 202
     iterations, then DDPG, SAC and CrossQ on Ant @4096 (batch 8192, memory
     5e6: ring 1220 x 4096 x 78 fp32; CrossQ's critic sees 16,384 rows per
-    update) for 12 iterations each after the warm-up."""
+    update) for 11 iterations each after the warm-up."""
     import torch
 
     runs, sim_ms = {}, None
@@ -1352,7 +1419,317 @@ def ddpg_learning_gate(dev) -> dict:
                 checked="ddpg seed 0, best of the evals", runs=out, launches=dict(kernels.LAUNCHES))
 
 
-def main() -> int:
+def ippo_learning_gate(dev) -> dict:
+    """IPPO seed 0 on the JAX package's two-agent quick check (``IPPO_GATE``):
+    ``train/success_rate`` after ``IPPO_ITERS`` iterations must reach
+    ``IPPO_THRESHOLD``; the rate every 10 iterations and the final eval
+    return are printed."""
+    import torch
+    from pql_tpu_torch.algos import get_algo
+    from pql_tpu_torch.cfg import make_config
+    from pql_tpu_torch.envs import make_eval_env
+    from pql_tpu_torch.ops import kernels
+    from pql_tpu_torch.utils.evaluator import Evaluator
+
+    kernels.reset_launches()
+    cfg = make_config("ippo", seed=0, **IPPO_GATE)
+    agent = get_algo(cfg.algo.name)(cfg, device=dev)
+    state, trace = agent.init(), {}
+    t0 = time.perf_counter()
+    for it in range(1, IPPO_ITERS + 1):
+        state, m = agent.train_iter(state)
+        if it % 10 == 0:
+            trace[it] = float(m["train/success_rate"])
+    wall_s = time.perf_counter() - t0
+    ev = Evaluator(cfg, make_eval_env(cfg), agent.eval_actor_apply, dev)
+    ret = ev.eval_policy(agent.eval_params(state), state.obs_rms, torch.Generator(device=dev).manual_seed(123))["eval/return"]
+    check(trace[IPPO_ITERS] >= IPPO_THRESHOLD,
+          f"IPPO seed 0: train/success_rate {trace[IPPO_ITERS]} < {IPPO_THRESHOLD} after {IPPO_ITERS} iterations")
+    return dict(config=IPPO_GATE, iterations=IPPO_ITERS, threshold=IPPO_THRESHOLD, checked="ippo seed 0",
+                success_rate_by_iteration=trace, eval_return=ret, train_wall_s=wall_s,
+                launches=dict(kernels.LAUNCHES))
+
+
+def ppo_reference(dev) -> dict:
+    """Two iterations of PPO (value_norm), IPPO (two pairs, and one pair
+    under same_policy on the Sym task) and MAPPO at a small size on the card
+    and on the CPU, from the same initial state (drawn on the CPU from the
+    seed) with the same draws: each network's parameter step within 1% of
+    its norm, losses within 1e-3 (relative; absolute below 1)."""
+    import torch
+    from pql_tpu_torch.algos import get_algo
+    from pql_tpu_torch.cfg import make_config
+
+    out = {}
+    for algo, extra in PPO_REF:
+        cfg = make_config(algo, **PPO_REF_SIZE, **extra)
+        agents = {d: get_algo(cfg.algo.name)(cfg, device=d) for d in ("cpu", dev)}
+        states = {d: a.init() for d, a in agents.items()}
+
+        def parts(st):  # each network's parameters, flat; a dict of networks (IPPO's) holds them all
+            actor, critic = agents["cpu"].snapshot_parts(st)
+            mods = actor if isinstance(actor, torch.nn.ModuleDict) else {"actor": actor, "critic": critic}
+            return {g: torch.cat([p.detach().float().cpu().flatten() for p in m.parameters()]) for g, m in mods.items()}
+
+        theta0 = parts(states["cpu"])
+        gen = torch.Generator().manual_seed(1)
+        losses = {d: [] for d in agents}
+        for _ in range(2):
+            draws = agents["cpu"].draw_iteration(gen)
+            for d, agent in agents.items():
+                states[d], m = agent.train_iter(states[d], {k: v.to(d) for k, v in draws.items()})
+                losses[d] += [float(v) for k, v in sorted(m.items()) if k.endswith(("_loss", "_loss_left"))]
+        got, want = parts(states[dev]), parts(states["cpu"])
+        rel = {g: float((got[g] - want[g]).norm() / (want[g] - theta0[g]).norm()) for g in want}
+        loss_err = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(losses[dev], losses["cpu"]))
+        obs_err = float((states[dev].obs.cpu() - states["cpu"].obs).abs().max())
+        label = f"{algo} {extra}"
+        for g, r in rel.items():
+            check(r <= 1e-2, f"{label}: card vs CPU {g} step differs by {r:.3g} of its norm")
+        check(loss_err <= 1e-3, f"{label}: card vs CPU loss differs by {loss_err:.3g}")
+        check(states[dev].update_count == states["cpu"].update_count > 0, f"{label} counters")
+        out[f"{algo} {extra['task']}" + (" same_policy" if "algo__same_policy" in extra else "")] = dict(
+            step_rel_err=rel, loss_rel_err=loss_err, obs_max_abs_err=obs_err, updates=states[dev].update_count)
+    return dict(config=PPO_REF_SIZE, iterations=2, runs=out)
+
+
+def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters: int, profiled_iters: int) -> dict:
+    """A PPO, IPPO or MAPPO path at full width through the agent:
+    ``warm_iters`` + ``blocks`` x ``block_iters`` iterations timed in blocks,
+    then a profiled window of ``profiled_iters`` whose kernel time is the
+    device time of whole iterations; on a graphed task one replay of the
+    control step's graph, profiled alone, times H control steps of the sim
+    (the window must hold at least 99% of their kernels), and CUDA events
+    around each control step give the sim's span on the stream. The
+    kernels' launch counts are reset before the path runs and read after."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pql_tpu_torch.algos import get_algo
+    from pql_tpu_torch.cfg import parse_cli
+    from pql_tpu_torch.ops import kernels
+
+    cfg = parse_cli(list(argv))
+    agent = get_algo(cfg.algo.name)(cfg, device=dev)
+    task, E, H = agent.env.task, cfg.num_envs, cfg.algo.horizon_len
+    label = f"{cfg.algo.name} {cfg.task}@{E}"
+    sim_events, graphed = [], task.dynamics
+
+    def timed_dynamics(state, action, *draw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = graphed(state, action, *draw)
+        end.record()
+        sim_events.append((start, end))
+        return res
+
+    task.dynamics = timed_dynamics
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state = agent.init()
+    losses, block_ms, loss_keys = [], [], []
+
+    def run(n):
+        nonlocal state
+        for _ in range(n):
+            state, m = agent.train_iter(state)
+            loss_keys[:] = sorted(k for k in m if "_loss" in k)
+            losses.append(torch.stack([m[k] for k in loss_keys]))
+
+    run(warm_iters)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps_before = len(sim_events)
+    for _ in range(blocks):
+        t1 = time.perf_counter()
+        run(block_iters)
+        torch.cuda.synchronize()
+        block_ms.append(1e3 * (time.perf_counter() - t1) / block_iters)
+    timed_steps = sim_events[steps_before:]
+    sim_span_ms = sum(a.elapsed_time(b) for a, b in timed_steps) / (blocks * block_iters)
+    task.dynamics = graphed
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        run(profiled_iters)
+        torch.cuda.synchronize()
+        profiled_wall_ms = 1e3 * (time.perf_counter() - t1) / profiled_iters
+    launches = dict(kernels.LAUNCHES)
+    iters = warm_iters + blocks * block_iters + profiled_iters
+    n_mb = agent.rows // cfg.algo.batch_size
+    lo = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(lo).all()), f"non-finite loss on the {label} path")
+    check(state.update_count == cfg.algo.update_times * n_mb * iters,
+          f"{label}: {state.update_count} updates after {iters} iterations of {cfg.algo.update_times} x {n_mb}")
+    check(state.env_steps == H * E * iters, f"{label} env steps {state.env_steps}")
+    check(launches["c51_td_target"] == 0, f"{label} launched c51_td_target")
+    trackers = {k: float(v) for k, v in state.stats.metrics().items()}
+    check(all(math.isfinite(v) for v in trackers.values()), f"{label} trackers {trackers}")
+
+    t1 = time.perf_counter()
+    kernel_rows = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA
+                   and not getattr(r, "is_user_annotation", False)]
+    kernel_ms = sum(_self_device_us(r) for r in kernel_rows) / 1e3 / profiled_iters
+    window_launches = sum(r.count for r in kernel_rows)
+    profile_read_s = time.perf_counter() - t1
+    ms = statistics.median(block_ms)
+    out = dict(
+        config=" ".join(argv) + f" (envs {E}, horizon {H}, batch {cfg.algo.batch_size}, epochs "
+                                f"{cfg.algo.update_times}, {n_mb} minibatches, value_norm {cfg.algo.value_norm}, "
+                                f"fp32, reward scale {cfg.algo.reward_scale:g})",
+        card=smi, iterations=iters, setup_s=setup_s, ms_per_iter=ms, env_steps_per_s=1e3 * H * E / ms,
+        block_ms_per_iter=block_ms, losses_last=dict(zip(loss_keys, lo[-1].tolist())),
+        update_count=state.update_count, updates_per_iter=cfg.algo.update_times * n_mb, env_steps=state.env_steps,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, trackers=trackers, launches=launches,
+        profiled_wall_ms_per_iter=profiled_wall_ms, device_ms_per_iter=kernel_ms, device_busy_share=kernel_ms / ms,
+        kernel_launches_per_iter=window_launches / profiled_iters, profile_read_s=profile_read_s,
+        sim_span_ms_per_iter=sim_span_ms,
+    )
+    graphs = getattr(task, "_graphs", None)
+    if graphs:
+        graph = graphs[(E, torch.device(dev))]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
+            graph.graph.replay()
+            torch.cuda.synchronize()
+        graph_kernels, _ = graph_kernel_nodes(graph.graph)
+        check(_kernel_launches(gprof) >= 0.99 * graph_kernels,
+              f"the profiler does not trace the {label} graph's kernels: no sim/learner split")
+        check(window_launches >= 0.99 * H * graph_kernels * profiled_iters,
+              f"the {label} profile window lost kernel records: {window_launches} for {H} x {graph_kernels} graph nodes")
+        sim_ms = H * sum(_self_device_us(r) for r in gprof.key_averages() if r.device_type == DeviceType.CUDA) / 1e3
+        out.update(sim_graph_device_ms_per_iter=sim_ms, learner_and_rest_device_ms_per_iter=kernel_ms - sim_ms,
+                   launches_per_control_step=graph_kernels, graph_build_s=graph.build_s)
+    if hasattr(task, "get_symmetry"):
+        out["symmetry_tracker_mean"] = float(agent.env.symmetry_tracker(state.env_state).mean())
+    return out
+
+
+def onpolicy_paths(dev, smi: str, paths) -> dict:
+    """``onpolicy_run`` of each (argv, depth) in ``paths``, one after another."""
+    import torch
+
+    runs = {}
+    for argv, depth in paths:
+        t0 = time.perf_counter()
+        r = onpolicy_run(dev, smi, argv, *depth)
+        r["wall_s"] = time.perf_counter() - t0
+        runs[" ".join(argv)] = r
+        torch.cuda.empty_cache()
+    return dict(runs=runs)
+
+
+def ppo_main_path(dev, smi: str) -> dict:
+    """PPO at full width on Ant @4096 (horizon 16, batch 32768, 4 epochs) and
+    FrankaCubeStack @8192 (horizon 32, batch 16384, 5 epochs), the task
+    presets of ``task_param``."""
+    return onpolicy_paths(dev, smi, PPO_PATHS)
+
+
+def two_agent_main_path(dev, smi: str) -> dict:
+    """IPPO and MAPPO on BimanualReacher @4096 and IPPO under same_policy on
+    BimanualReacherSym @4096 (the presets: horizon 16, batch 32768, 4
+    epochs); the Sym task's mirrored share within ``SYM_TRACKER_BAND``."""
+    out = onpolicy_paths(dev, smi, TWO_AGENT_PATHS)
+    for name, r in out["runs"].items():
+        if "Sym" in name:
+            lo, hi = SYM_TRACKER_BAND
+            check(lo <= r["symmetry_tracker_mean"] <= hi, f"{name}: mirrored share {r['symmetry_tracker_mean']}")
+    return out
+
+
+def ppo_entry_path(dev, smi: str, argv=PPO_ENTRY_ARGV, iters=PPO_ENTRY_ITERS) -> dict:
+    """``pql_tpu_torch.train.main`` with ``argv`` (an agent without a
+    warm-up; by default PPO on Cartpole @4096) for ``iters[0]`` iterations,
+    with evals, full checkpoints and a best model in ``SMOKE_DIR/ppo_entry``:
+    the eval records at the predicted iterations and the files; then
+    ``train_baseline`` resumes from the checkpoint to ``iters[1]``
+    iterations at the predicted iteration, and ends bitwise where one
+    uninterrupted run of as many iterations ends. ``iters[0]`` is a multiple
+    of ``PPO_ENTRY_CKPT_FREQ``."""
+    import contextlib
+    import io
+    import shutil
+    import statistics
+
+    import torch
+    from pql_tpu_torch import train
+    from pql_tpu_torch.cfg import parse_cli
+    from pql_tpu_torch.ops import kernels
+    from pql_tpu_torch.utils import checkpoint
+    from pql_tpu_torch.utils.logging import RunLogger
+
+    root = os.path.join(SMOKE_DIR, "ppo_entry")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = parse_cli(list(argv))
+    per_iter = cfg.num_envs * cfg.algo.horizon_len
+    first, total = iters
+    common = list(argv) + [
+        f"algo.eval_freq={PPO_ENTRY_EVAL_FREQ}", "algo.log_freq=1", f"checkpoint_freq={PPO_ENTRY_CKPT_FREQ}",
+        f"logging.out_dir={root}/runs", "logging.console=false"]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    train.main(common + [f"max_step={(first - 1) * per_iter}", f"checkpoint_dir={root}/ckpt",
+                         "logging.run_name=first", f"--device={dev}"])
+    torch.cuda.synchronize()
+    wall_first = time.perf_counter() - t0
+    run_dir = os.path.join(root, "runs", "first")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    it_of = lambda step: step // per_iter  # noqa: E731  (no warm-up)
+    evals = [r for r in recs if "eval/return" in r]
+    eval_its = list(range(PPO_ENTRY_EVAL_FREQ, first + 1, PPO_ENTRY_EVAL_FREQ))
+    check([it_of(r["step"]) for r in evals] == eval_its,
+          f"eval records at iterations {[it_of(r['step']) for r in evals]}, predicted {eval_its}")
+    check(all(math.isfinite(r["eval/return"]) for r in evals), "non-finite eval record")
+    speed = [r for r in recs if "speed/env_steps_per_s" in r]
+    check(it_of(speed[0]["step"]) == 1, f"the first record at env step {speed[0]['step']}: a warm-up ran")
+    ckpt_file = os.path.join(root, "ckpt", "state", checkpoint.STATE_FILE)
+    check(os.path.exists(ckpt_file) and os.path.exists(os.path.join(run_dir, "best_model", checkpoint.SNAPSHOT_FILE)),
+          "the checkpoint or the best model is missing")
+    ms = {it_of(r["step"]): 1e3 * per_iter / r["speed/env_steps_per_s"] for r in speed}
+
+    def run(name, ckpt):
+        c = parse_cli(common + [f"max_step={(total - 1) * per_iter}", f"checkpoint_dir={root}/{ckpt}",
+                                f"logging.run_name={name}"])
+        logger = RunLogger(c)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                agent, state = train.train_baseline(c, logger, dev)
+        finally:
+            logger.close()
+        return agent, state, buf.getvalue()
+
+    t0 = time.perf_counter()
+    agent, resumed, printed = run("second", "ckpt")
+    wall_resumed = time.perf_counter() - t0
+    check(f"at env step {first * per_iter} (no warm-up)" in printed, f"the rerun did not resume: {printed[-200:]!r}")
+    with open(os.path.join(root, "runs", "second", "metrics.jsonl")) as f:
+        resumed_its = [it_of(json.loads(line)["step"]) for line in f]
+    check(min(resumed_its) == first + 1, f"the resumed run logged from iteration {min(resumed_its)}")
+    _, whole, _ = run("whole", "ckpt_whole")
+    diffs = state_diffs(resumed, whole)
+    check(not diffs, f"the resumed {cfg.algo.name} run differs from the uninterrupted one in {diffs[:8]}")
+    n_mb = agent.rows // cfg.algo.batch_size
+    check(resumed.update_count == cfg.algo.update_times * n_mb * total, f"{resumed.update_count} updates")
+    launches = dict(kernels.LAUNCHES)
+    check(launches["c51_td_target"] == 0, f"the {cfg.algo.name} entry path launched c51_td_target")
+    ckpt_bytes = os.path.getsize(ckpt_file)
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(
+        config=" ".join(argv) + f" (envs {cfg.num_envs}, horizon {cfg.algo.horizon_len}, batch "
+                                          f"{cfg.algo.batch_size})", card=smi,
+        iterations_first=first, iterations_resumed=total, eval_iterations=eval_its,
+        eval_returns=[r["eval/return"] for r in evals], resumed_from_iteration=first, bitwise_equal_after_resume=True,
+        checkpoint_bytes=ckpt_bytes, wall_s_first=wall_first, wall_s_resumed=wall_resumed,
+        ms_per_iter_by_interval=ms, ms_per_iter_median=statistics.median(ms.values()), launches=launches,
+    )
+
+
+def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1368,6 +1745,14 @@ def main() -> int:
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     emit(dict(phase="device", kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda))
+    if argv == ["--entry"]:
+        for run_argv, iters in ENTRY_RUNS:
+            r, s = timed(ppo_entry_path, dev, smi, run_argv, iters)
+            emit(dict(phase="entry_run", wall_s=s, **r))
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+        return 0
+    check(not argv, f"unknown arguments {argv} (none, or --entry)")
 
     t0 = time.perf_counter()
     built = kernels.build_kernels()
@@ -1409,6 +1794,18 @@ def main() -> int:
     emit(dict(phase="baseline_entry_path", wall_s=s, **bentry))
     bgate, s = timed(ddpg_learning_gate, dev)
     emit(dict(phase="ddpg_learning_gate", card=smi, wall_s=s, **bgate))
+    pref, s = timed(ppo_reference, dev)
+    emit(dict(phase="ppo_reference", wall_s=s, **pref))
+    pmain, s = timed(ppo_main_path, dev, smi)
+    emit(dict(phase="ppo_main_path", wall_s=s, **pmain))
+    franka, s = timed(physics_check, dev, ("FrankaCubeStack",), FRANKA_ENVS, FRANKA_MAX_FLIPS)
+    emit(dict(phase="franka_physics_check", card=smi, wall_s=s, tasks=franka))
+    pairs, s = timed(two_agent_main_path, dev, smi)
+    emit(dict(phase="two_agent_main_path", wall_s=s, **pairs))
+    pentry, s = timed(ppo_entry_path, dev, smi)
+    emit(dict(phase="ppo_entry_path", wall_s=s, **pentry))
+    igate, s = timed(ippo_learning_gate, dev)
+    emit(dict(phase="ippo_learning_gate", card=smi, wall_s=s, **igate))
 
     by_path = {"pql_d Cartpole@4096": main["launches"], "pql_d AllegroHand@16384": allegro_d["launches"],
                "pql_d Cartpole@4096 entry point": entry["launches"],
@@ -1416,7 +1813,10 @@ def main() -> int:
                "pql_d Cartpole@256 learning run": gate["launches"],
                **{f"{name} (baseline)": r["launches"] for name, r in bmain["runs"].items()},
                "algo=ddpg Cartpole@16 entry point": bentry["launches"],
-               "ddpg Cartpole@64 learning runs": bgate["launches"]}
+               "ddpg Cartpole@64 learning runs": bgate["launches"],
+               **{f"{name} (on-policy)": r["launches"] for name, r in {**pmain["runs"], **pairs["runs"]}.items()},
+               "algo=ppo Cartpole@4096 entry point": pentry["launches"],
+               "ippo BimanualReacher@1024 learning run": igate["launches"]}
     emit({"kernels": [
         dict(name=c["name"], route="cuda", source=kernels.KERNELS[c["name"]]["source"],
              replaces=kernels.KERNELS[c["name"]]["replaces"],
@@ -1433,4 +1833,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

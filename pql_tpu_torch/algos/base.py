@@ -25,6 +25,27 @@ from pql_tpu_torch.replay.nstep import FIELDS
 from pql_tpu_torch.utils.trackers import EpisodeStats
 
 
+def check_one_device(cfg) -> None:
+    """Refuse a multi-device run: the port runs on one device so far."""
+    if (cfg.num_devices or 1) != 1:
+        raise NotImplementedError(f"num_devices={cfg.num_devices!r} is not ported yet (only 1)")
+
+
+class ActorCriticAgent:
+    """What the loop and the services take from an agent's state: the
+    networks its eval hook runs, and the best-model snapshot's actor and
+    critic (scripts/train.py:248-258). An agent whose state keeps its
+    networks otherwise overrides both (IPPO)."""
+
+    @staticmethod
+    def eval_params(state) -> nn.Module:
+        return state.actor
+
+    @staticmethod
+    def snapshot_parts(state) -> tuple[nn.Module, nn.Module]:
+        return state.actor, state.critic
+
+
 def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.algo.compute_dtype == "bfloat16" else torch.float32
 
@@ -37,10 +58,13 @@ def build_actor(cfg, obs_dim: int, act_dim: int, gen: torch.Generator) -> nn.Mod
 
 def build_critic(cfg, obs_dim: int, act_dim: int, gen: torch.Generator) -> nn.Module:
     """The critic named by cfg.algo.cri_class; distl=True prepends
-    'Distributional' (reference pql_v_learner.py:30-31)."""
+    'Distributional' (reference pql_v_learner.py:30-31). A state-value
+    ``MLPCritic`` takes the obs alone."""
     name = cfg.algo.cri_class
     if cfg.algo.distl and "Distributional" not in name:
         name = "Distributional" + name
+    if name == "MLPCritic":
+        return get_model(name)(obs_dim, gen=gen, dtype=compute_dtype(cfg))
     kwargs = {}
     if "Distributional" in name:
         kwargs = dict(v_min=cfg.algo.v_min, v_max=cfg.algo.v_max, num_atoms=cfg.algo.num_atoms)

@@ -66,13 +66,12 @@ class OffPolicyState:
 
 def check_supported(cfg) -> None:
     """Fail on options the port does not implement yet."""
-    if (cfg.num_devices or 1) != 1:
-        raise NotImplementedError(f"num_devices={cfg.num_devices!r} is not ported yet (only 1)")
+    base.check_one_device(cfg)
     if cfg.algo.noise.type not in ("mixed", "fixed"):
         raise ValueError(f"unknown algo.noise.type {cfg.algo.noise.type!r}")
 
 
-class DDPG:
+class DDPG(base.ActorCriticAgent):
     """DDPG trainer on one device."""
 
     name = "DDPG"

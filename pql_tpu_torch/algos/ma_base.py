@@ -1,0 +1,176 @@
+"""What the PPO family shares, and the two-agent machinery (port of
+pql_tpu/algos/ma_base.py:30-191).
+
+- ``MultiAgentCtx``: a task's ``MultiAgentSpec`` bound to a
+  ``SymmetryManager``, with the per-hand model builders and the C2 rep
+  generators of the task's ``EquivarianceSpec``;
+- ``gae``: GAE with the timeout XOR mask, or plain discounted returns;
+- ``normalize_advantages``, ``ppo_actor_loss``, ``ppo_value_loss``: the
+  per-minibatch whitening (population std) and the clipped losses;
+- ``epoch_minibatches``, ``flat``, ``loss_metrics``.
+
+The rep helpers ``sign_rep``, ``perm_sign_rep`` and ``concat_reps`` are a
+numpy copy of those of pql_tpu/models/emlp.py:55-85.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from pql_tpu_torch.algos.base import compute_dtype
+from pql_tpu_torch.envs.base import VecEnv
+from pql_tpu_torch.models import get_model
+from pql_tpu_torch.utils.symmetry import EquivarianceSpec, MultiAgentSpec, SymmetryManager
+
+
+def sign_rep(signs: Sequence[float]) -> tuple:
+    """Generator of a diagonal ±1 representation, as a nested tuple."""
+    return tuple(map(tuple, np.diag(np.asarray(signs, np.float32))))
+
+
+def perm_sign_rep(perm: Sequence[int], signs: Sequence[float] | None = None) -> tuple:
+    """Generator acting on row vectors as (x @ G)[i] = sign[i] · x[perm[i]]."""
+    d = len(perm)
+    signs = signs if signs is not None else [1.0] * d
+    m = np.zeros((d, d), np.float32)
+    for i, (p, s) in enumerate(zip(perm, signs)):
+        m[int(p), i] = float(s)
+    return tuple(map(tuple, m))
+
+
+def concat_reps(*gens: tuple) -> tuple:
+    """Direct sum (block diagonal) of generators."""
+    mats = [np.asarray(g, np.float32) for g in gens]
+    d = sum(m.shape[0] for m in mats)
+    out, o = np.zeros((d, d), np.float32), 0
+    for m in mats:
+        out[o : o + m.shape[0], o : o + m.shape[0]] = m
+        o += m.shape[0]
+    return tuple(map(tuple, out))
+
+
+class MultiAgentCtx:
+    """A two-agent task's spec and manager, and its per-hand models."""
+
+    def __init__(self, env: VecEnv, symmetric_envs: bool | None = None):
+        spec: MultiAgentSpec | None = env.multi
+        if spec is None:
+            raise ValueError(f"Task '{type(env.task).__name__}' has no MultiAgentSpec; multi-agent algorithms "
+                             "need a bimanual task (e.g. task=BimanualReacher)")
+        if symmetric_envs is None:
+            symmetric_envs = bool(getattr(env.task, "symmetric", False))
+        self.spec = spec
+        self.manager = SymmetryManager(spec, symmetric_envs)
+        self.obs_dims = spec.single_agent_obs_dim
+        self.action_dim = spec.single_agent_action_dim
+        self.shared_obs_dim = spec.shared_obs_dim
+        self.eq: EquivarianceSpec | None = getattr(env.task, "equivariance", None)
+
+    def _require_eq(self) -> EquivarianceSpec:
+        if self.eq is None:
+            raise ValueError("this task provides no EquivarianceSpec")
+        return self.eq
+
+    def obs_gen(self, side: int) -> tuple:
+        eq = self._require_eq()
+        if eq.obs_perms is not None:
+            return perm_sign_rep(eq.obs_perms[side], eq.obs_signs[side])
+        return sign_rep(eq.obs_signs[side])
+
+    def act_gen(self) -> tuple:
+        eq = self._require_eq()
+        return perm_sign_rep(eq.act_perm, eq.act_signs) if eq.act_perm is not None else sign_rep(eq.act_signs)
+
+    def joint_obs_gen(self) -> tuple:
+        """The rep on the joint obs: right block ⊕ left block."""
+        return concat_reps(self.obs_gen(0), self.obs_gen(1))
+
+    def make_actor(self, cfg, gen: torch.Generator, side: int = 0):
+        return get_model(cfg.algo.act_class)(self.obs_dims[side], self.action_dim, gen=gen, dtype=compute_dtype(cfg))
+
+    def make_critic(self, cfg, gen: torch.Generator, side: int = 0, central: bool = False):
+        """A state-value critic on one hand's view, or on the joint obs (``central``)."""
+        in_dim = self.shared_obs_dim if central else self.obs_dims[side]
+        return get_model(cfg.algo.cri_class)(in_dim, gen=gen, dtype=compute_dtype(cfg))
+
+    def split_obs(self, obs, tracker):
+        return self.manager.get_multi_agent_obs(obs, tracker)
+
+    def merge_actions(self, act_right, act_left, tracker):
+        return self.manager.get_execute_action(act_right, act_left, tracker)
+
+    def split_reward(self, info, tracker):
+        return self.manager.get_multi_agent_rew(info["detailed_reward"], tracker)
+
+
+@torch.no_grad()
+def gae(rewards, dones, values, truncated, next_value, next_done, gamma: float, lam: float, use_gae: bool = True):
+    """(advantages, returns), both [T, B]. ``dones[t]`` is the done flag that
+    produced obs[t]; a reverse loop over t carries (lastgaelam, next value,
+    1 − done[t+1]) from (0, next_value, 1 − next_done). The bootstrap is
+    masked by XOR(1 − done[t+1], truncated[t]), so it runs through a
+    timeout. Without ``use_gae``, plain discounted returns."""
+    out = torch.empty_like(rewards)
+    lastgaelam, nextvalues, nextnonterminal = torch.zeros_like(next_value), next_value, 1.0 - next_done
+    for t in reversed(range(rewards.shape[0])):
+        if use_gae:
+            nextnonterminal2 = ((nextnonterminal > 0.5) ^ (truncated[t] > 0.5)).float()
+            delta = rewards[t] + gamma * nextvalues * nextnonterminal2 - values[t]
+            lastgaelam = delta + gamma * lam * nextnonterminal * lastgaelam
+            nextvalues = values[t]
+        else:
+            lastgaelam = nextvalues = rewards[t] + gamma * nextnonterminal * nextvalues
+        out[t] = lastgaelam
+        nextnonterminal = 1.0 - dones[t]
+    if use_gae:
+        return out, out + values
+    return out - values, out
+
+
+def normalize_advantages(adv: torch.Tensor) -> torch.Tensor:
+    """Whitened by the population std (ddof 0, as ``jnp.std``)."""
+    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+
+
+def ppo_actor_loss(logp_new, logp_old, adv, entropy, ratio_clip: float, lambda_entropy: float):
+    """The clipped-ratio surrogate minus the entropy bonus."""
+    ratio = torch.exp(logp_new - logp_old)
+    l1 = -adv * ratio
+    l2 = -adv * torch.clamp(ratio, 1.0 - ratio_clip, 1.0 + ratio_clip)
+    return torch.mean(torch.maximum(l1, l2)) - lambda_entropy * torch.mean(entropy)
+
+
+def ppo_value_loss(v_new, returns, v_old, ratio_clip: float, value_clip: bool):
+    """½ MSE to the returns; with ``value_clip`` the max of it and the loss of
+    the value moved at most ``ratio_clip`` from the old one."""
+    unclipped = torch.square(v_new - returns)
+    if value_clip:
+        v_clipped = v_old + torch.clamp(v_new - v_old, -ratio_clip, ratio_clip)
+        return 0.5 * torch.mean(torch.maximum(unclipped, torch.square(v_clipped - returns)))
+    return 0.5 * torch.mean(unclipped)
+
+
+def epoch_minibatches(perm: torch.Tensor, data: tuple, batch_size: int) -> tuple:
+    """Each tensor of ``data`` [N, ...] shuffled by ``perm`` and cut into
+    [N // batch_size, batch_size, ...] (a remainder is dropped)."""
+    n_mb = data[0].shape[0] // batch_size
+    idx = perm[: n_mb * batch_size]
+    return tuple(x[idx].reshape((n_mb, batch_size) + x.shape[1:]) for x in data)
+
+
+def flat(x: torch.Tensor) -> torch.Tensor:
+    """[T, B, ...] → [T·B, ...]."""
+    return x.reshape((-1,) + x.shape[2:])
+
+
+def loss_metrics(losses: dict) -> dict:
+    """Mean of each loss list, named as the reference: 'actor' →
+    'train/actor_loss', 'actor_left' → 'train/actor_loss_left'."""
+    out = {}
+    for k, v in losses.items():
+        head, _, tail = k.partition("_")
+        out[f"train/{head}_loss" + (f"_{tail}" if tail else "")] = torch.stack(v).mean()
+    return out

@@ -82,13 +82,12 @@ def check_supported(cfg) -> None:
     """Fail on another algorithm's config and on options the port does not implement yet."""
     if cfg.algo.name != "PQL":
         raise ValueError(f"PQL runs algo.name='PQL', not {cfg.algo.name!r} (algos.get_algo picks the agent)")
-    if (cfg.num_devices or 1) != 1:
-        raise NotImplementedError(f"num_devices={cfg.num_devices!r} is not ported yet (only 1)")
+    base.check_one_device(cfg)
     if cfg.algo.noise.type not in ("mixed", "fixed"):
         raise ValueError(f"unknown algo.noise.type {cfg.algo.noise.type!r}")
 
 
-class PQL:
+class PQL(base.ActorCriticAgent):
     """PQL / PQL-D trainer on one device."""
 
     def __init__(self, cfg, device: str | torch.device = "cuda"):

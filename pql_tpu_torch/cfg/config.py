@@ -1,13 +1,14 @@
 """Dataclass configuration tree for the PyTorch port.
 
-A copy of the PQL and off-policy baseline parts of ``pql_tpu.cfg.config``,
-kept here so the port imports nothing of the JAX package. The CLI grammar
-is the same:
+A copy of the PQL, off-policy baseline and on-policy (PPO, IPPO, MAPPO)
+parts of ``pql_tpu.cfg.config``, kept here so the port imports nothing of
+the JAX package. The CLI grammar is the same:
 
     python -m pql_tpu_torch.train algo=pql_d task=Cartpole num_envs=4096 algo.batch_size=8192
     python -m pql_tpu_torch.train algo=ddpg task=Cartpole num_envs=16 algo.batch_size=1024
+    python -m pql_tpu_torch.train algo=ppo task=Ant task_param=true
 
-Only the fields the port's PQL, DDPG, SAC and CrossQ paths read are kept,
+Only the fields the port's PQL, DDPG, SAC, CrossQ, PPO, IPPO and MAPPO paths read are kept,
 so an override of a knob the port does not implement fails with "No config
 field" instead of being ignored. The device is an argument of the entry points, not a
 config field.
@@ -46,8 +47,9 @@ class LoggingConfig:
 
 @dataclass
 class AlgoConfig:
-    """PQL / PQL-D and DDPG / SAC / CrossQ hyperparameters (actor_critic.yaml,
-    pql_algo.yaml, ddpg_algo.yaml, sac_algo.yaml)."""
+    """PQL / PQL-D, DDPG / SAC / CrossQ and PPO / IPPO / MAPPO hyperparameters
+    (actor_critic.yaml, pql_algo.yaml, ddpg_algo.yaml, sac_algo.yaml,
+    ppo_algo.yaml)."""
 
     name: str = "PQL"
     actor_lr: float = 5e-4
@@ -57,6 +59,7 @@ class AlgoConfig:
     max_grad_norm: float | None = 0.5
     tracker_len: int = 100
     obs_norm: bool = True
+    value_norm: bool = False  # PPO family: a running norm of the critic's targets
     handle_timeout: bool = True
     log_freq: int = 2
     eval_freq: int = 200
@@ -90,6 +93,14 @@ class AlgoConfig:
     # --- SAC: a fixed temperature, or None to learn log α ---
     alpha: float | None = None
     alpha_lr: float = 5e-3
+    # --- PPO (ppo_algo.yaml) ---
+    use_gae: bool = True
+    value_clip: bool = True
+    lambda_gae_adv: float = 0.95
+    lambda_entropy: float = 0.0
+    ratio_clip: float = 0.2
+    # --- IPPO: one actor/critic pair for both hands, on the summed losses ---
+    same_policy: bool = False
     compute_dtype: str = "float32"  # network compute dtype; params stay fp32
     replay_dtype: str = "float32"
     # iterations per train_block call (a Python loop in the port)
@@ -103,6 +114,11 @@ class AlgoConfig:
     prefetch_batches: bool = False
 
 
+# ppo_algo.yaml; the two-agent agents reuse it with the agent swapped
+_ON_POLICY = dict(horizon_len=16, batch_size=32768, act_class="DiagGaussianMLPPolicy", cri_class="MLPCritic",
+                  eval_freq=20, update_times=4)
+
+
 def _algo_presets() -> dict[str, dict[str, Any]]:
     return {
         "pql": dict(name="PQL", eval_freq=200),
@@ -110,7 +126,11 @@ def _algo_presets() -> dict[str, dict[str, Any]]:
         "ddpg": dict(name="DDPG", eval_freq=100, update_times=8),
         "sac": dict(name="SAC", act_class="TanhDiagGaussianMLPPolicy", eval_freq=100, update_times=8),
         "crossq": dict(name="CrossQ", cri_class="DoubleQBatchNorm", eval_freq=100, update_times=8),
+        "ppo": dict(_ON_POLICY, name="PPO"),
+        "ippo": dict(_ON_POLICY, name="IPPO"),
+        "mappo": dict(_ON_POLICY, name="MAPPO"),
     }
+
 
 
 @dataclass
@@ -128,6 +148,8 @@ class Config:
     # 'all-episode' or 'all-step'; 'last' for every key when None)
     info_track_keys: tuple[str, ...] | None = None
     info_track_step: tuple[str, ...] | None = None
+    # PPO: the per-task presets of PPO_TASK_PRESETS (reference isaac_param)
+    task_param: bool = False
     # multi-device is not ported yet; PQL refuses anything but None or 1
     num_devices: int | None = None
     # full-state checkpoint directory (resumed from if it holds one) and the
@@ -160,13 +182,27 @@ TASK_MAX_TIME: dict[str, float] = {
 }
 
 
+PPO_TASK_PRESETS: dict[str, dict[str, Any]] = {
+    "Ant": dict(num_envs=4096, batch_size=32768, horizon_len=16, update_times=4),
+    "Humanoid": dict(num_envs=4096, batch_size=32768, horizon_len=32, update_times=5, value_norm=True),
+    "Anymal": dict(num_envs=4096, batch_size=32768, horizon_len=16, update_times=5),
+    "AllegroHand": dict(num_envs=16384, batch_size=32768, horizon_len=8, update_times=5, value_norm=True),
+    "ShadowHand": dict(num_envs=16384, batch_size=32768, horizon_len=8, update_times=5, value_norm=True),
+    "FrankaCubeStack": dict(num_envs=8192, batch_size=16384, horizon_len=32, update_times=5),
+}
+
+
 def preprocess_config(cfg: Config) -> Config:
     """Per-task reward_scale / max_time tables, applied only where the user
-    kept the default (reference common.py:148-182)."""
+    kept the default (reference common.py:148-182); with ``task_param`` a
+    PPO run takes its task's PPO_TASK_PRESETS entry (common.py:246-275)."""
     if cfg.task in TASK_REWARD_SCALE and cfg.algo.reward_scale == 1.0:
         cfg.algo.reward_scale = TASK_REWARD_SCALE[cfg.task]
     if cfg.task in TASK_MAX_TIME and cfg.max_time == 3600.0:
         cfg.max_time = TASK_MAX_TIME[cfg.task]
+    if cfg.algo.name == "PPO" and cfg.task_param and cfg.task in PPO_TASK_PRESETS:
+        for k, v in PPO_TASK_PRESETS[cfg.task].items():
+            setattr(cfg if k == "num_envs" else cfg.algo, k, v)
     return cfg
 
 

@@ -1,11 +1,13 @@
 """Environment registry (port of pql_tpu/envs/__init__.py; the classic
-tasks, the rigid-body locomotion tasks and the in-hand manipulation tasks so
-far). ``make_env(cfg)`` and ``make_eval_env(cfg)`` build the train and eval
+tasks, the rigid-body locomotion tasks, the in-hand manipulation tasks,
+FrankaCubeStack and the two-agent BimanualReacher(Sym) so far). ``make_env(cfg)`` and ``make_eval_env(cfg)`` build the train and eval
 env instances."""
 
 from pql_tpu_torch.envs.base import Task, VecEnv, VecEnvState, handle_timeout
+from pql_tpu_torch.envs.bimanual import BimanualReacher, BimanualReacherSym
 from pql_tpu_torch.envs.classic import BallBalance, Cartpole, Pendulum, PointMass, Reacher
 from pql_tpu_torch.envs.hand import AllegroHand, ShadowHand
+from pql_tpu_torch.envs.manip import FrankaCubeStack
 from pql_tpu_torch.envs.rigid import Ant, Anymal, Humanoid
 
 TASK_REGISTRY = {
@@ -19,6 +21,9 @@ TASK_REGISTRY = {
     "Anymal": Anymal,
     "AllegroHand": AllegroHand,
     "ShadowHand": ShadowHand,
+    "FrankaCubeStack": FrankaCubeStack,
+    "BimanualReacher": BimanualReacher,
+    "BimanualReacherSym": BimanualReacherSym,
 }
 
 

@@ -62,6 +62,15 @@ class VecEnv:
         self.obs_dim = task.obs_dim
         self.action_dim = task.action_dim
         self.max_episode_length = task.max_episode_length
+        # a two-agent task carries a MultiAgentSpec (utils/symmetry.py)
+        self.multi = getattr(task, "multi", None)
+
+    def symmetry_tracker(self, s: VecEnvState) -> torch.Tensor:
+        """[E] mirrored-episode flags from a task with ``get_symmetry``;
+        zeros for the others."""
+        if hasattr(self.task, "get_symmetry"):
+            return self.task.get_symmetry(s.state)
+        return torch.zeros(self.num_envs, dtype=torch.float32, device=s.time.device)
 
     def reset(self, draw: torch.Tensor):
         state = self.task.init_state(draw)
@@ -91,7 +100,7 @@ class VecEnv:
         time = torch.where(done, torch.zeros_like(time), time)
         obs = self.task.get_obs(next_state)
 
-        info = dict(info)
+        info = dict(info)  # a nested dict (``detailed_reward``) passes through as it is
         info["truncated"] = truncated
         return (
             VecEnvState(state=next_state, time=time),

@@ -1,9 +1,11 @@
 """Model registry of the port (name → class, as ``algo.act_class`` / ``algo.cri_class`` name them)."""
 
 from pql_tpu_torch.models.mlp import (
+    DiagGaussianMLPPolicy,
     DistributionalDoubleQ,
     DoubleQ,
     DoubleQBatchNorm,
+    MLPCritic,
     MLPNet,
     TanhDiagGaussianMLPPolicy,
     TanhMLPPolicy,
@@ -12,10 +14,12 @@ from pql_tpu_torch.models.mlp import (
 MODEL_REGISTRY = {
     "MLPNet": MLPNet,
     "TanhMLPPolicy": TanhMLPPolicy,
+    "DiagGaussianMLPPolicy": DiagGaussianMLPPolicy,
     "TanhDiagGaussianMLPPolicy": TanhDiagGaussianMLPPolicy,
     "DoubleQ": DoubleQ,
     "DoubleQBatchNorm": DoubleQBatchNorm,
     "DistributionalDoubleQ": DistributionalDoubleQ,
+    "MLPCritic": MLPCritic,
 }
 
 
@@ -25,5 +29,5 @@ def get_model(name: str):
     return MODEL_REGISTRY[name]
 
 
-__all__ = ["MODEL_REGISTRY", "get_model", "MLPNet", "TanhMLPPolicy", "TanhDiagGaussianMLPPolicy", "DoubleQ",
-           "DoubleQBatchNorm", "DistributionalDoubleQ"]
+__all__ = ["MODEL_REGISTRY", "get_model", "MLPNet", "TanhMLPPolicy", "DiagGaussianMLPPolicy",
+           "TanhDiagGaussianMLPPolicy", "DoubleQ", "DoubleQBatchNorm", "DistributionalDoubleQ", "MLPCritic"]

@@ -1,13 +1,15 @@
-"""MLP policies and critics (port of pql_tpu/models/mlp.py:35-96,136-160,200-263).
+"""MLP policies and critics (port of pql_tpu/models/mlp.py:35-160,200-274).
 
 - MLPNet                — ELU trunk, hidden [512, 256, 128]; with
   ``use_batchnorm`` a flax-rule ``BatchNorm`` after each hidden Linear
 - TanhMLPPolicy         — deterministic tanh policy (PQL, DDPG, CrossQ)
+- DiagGaussianMLPPolicy — PPO's Gaussian, a state-independent fp32 ``logstd``
 - TanhDiagGaussianMLPPolicy — SAC's squashed Gaussian, log_std in [-5, 5]
 - DoubleQ               — twin Q heads on concat(obs, act), ``q_min``
 - DoubleQBatchNorm      — CrossQ's twin Q heads with BatchNorm
 - DistributionalDoubleQ — twin C51 heads (softmax over num_atoms), ``q_min``
   over a linspace support
+- MLPCritic             — PPO's state-value head on obs alone
 
 Init is torch.nn.Linear's default, U(±1/sqrt(fan_in)) for weight and
 bias, drawn from an explicit generator. Params are fp32; with
@@ -25,7 +27,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pql_tpu_torch.models.distributions import squashed_gaussian_sample_logprob
+from pql_tpu_torch.models.distributions import (
+    diag_gaussian_entropy,
+    diag_gaussian_logprob,
+    diag_gaussian_sample,
+    squashed_gaussian_sample_logprob,
+)
 
 DEFAULT_HIDDEN = (512, 256, 128)
 
@@ -125,6 +132,32 @@ class TanhMLPPolicy(nn.Module):
         return torch.tanh(self.net(obs))
 
 
+class DiagGaussianMLPPolicy(nn.Module):
+    """PPO's Gaussian policy: the trunk emits the mean; ``logstd`` [act_dim]
+    is a state-independent fp32 parameter (flax name ``logstd``)."""
+
+    def __init__(self, obs_dim: int, act_dim: int, hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 gen: torch.Generator | None = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.act_dim = act_dim
+        self.net = MLPNet(obs_dim, act_dim, hidden, gen, dtype)
+        self.logstd = nn.Parameter(torch.zeros(act_dim, dtype=torch.float32))  # std 1 at init
+
+    def forward(self, obs):
+        mean = self.net(obs)
+        return mean, self.logstd.expand_as(mean)
+
+    def sample(self, obs, normal):
+        """(action, logp, entropy) with action = mean + std · normal, unclipped."""
+        mean, log_std = self(obs)
+        action = diag_gaussian_sample(normal, mean, log_std)
+        return action, diag_gaussian_logprob(action, mean, log_std), diag_gaussian_entropy(log_std)
+
+    def logprob_entropy(self, obs, actions):
+        mean, log_std = self(obs)
+        return diag_gaussian_logprob(actions, mean, log_std), diag_gaussian_entropy(log_std)
+
+
 class TanhDiagGaussianMLPPolicy(nn.Module):
     """SAC's squashed Gaussian: the trunk emits (mu, log_std), log_std
     clamped to [log_std_min, log_std_max]."""
@@ -208,3 +241,15 @@ class DistributionalDoubleQ(nn.Module):
         p1, p2 = self(obs, act)
         z = torch.linspace(self.v_min, self.v_max, self.num_atoms, dtype=p1.dtype, device=p1.device)
         return torch.minimum(torch.sum(p1 * z, dim=-1), torch.sum(p2 * z, dim=-1))[..., None]
+
+
+class MLPCritic(nn.Module):
+    """State-value critic V(obs) [..., 1]."""
+
+    def __init__(self, obs_dim: int, hidden: Sequence[int] = DEFAULT_HIDDEN, gen: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.net = MLPNet(obs_dim, 1, hidden, gen, dtype)
+
+    def forward(self, obs):
+        return self.net(obs)

@@ -5,7 +5,8 @@ count starting at epsilon=1e-4 (reference torch_util.py:68-114). The batch
 moments are taken the way the JAX package's ``update_sharded`` takes them
 (mean, then the sum of squared deviations over n-1), which on one device is
 the whole batch. ``normalize`` has no clamp (the actor); ``normalize_clip``
-clamps to ±5 (the learners, reference common.py:139-145).
+clamps to ±5 (the learners, reference common.py:139-145); ``unnormalize``
+is normalize's inverse (PPO's value normalization).
 
 The moments live in tensors on the device and are updated in place.
 """
@@ -38,6 +39,9 @@ class RunningMeanStd:
 
     def normalize(self, x: torch.Tensor) -> torch.Tensor:
         return (x - self.mean) / torch.sqrt(self.var + self.epsilon)
+
+    def unnormalize(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.sqrt(self.var + self.epsilon) + self.mean
 
     def normalize_clip(self, x: torch.Tensor, clip: float = 5.0) -> torch.Tensor:
         return torch.clamp(self.normalize(x), -clip, clip)

@@ -11,6 +11,8 @@ and ``train_baseline``, :260-314, chosen by ``algo.name`` as at :328-331).
     python -m pql_tpu_torch.train algo=ddpg task=Cartpole num_envs=16 algo.batch_size=1024 \\
         algo.memory_size=1000000 max_time=600
     python -m pql_tpu_torch.train algo=sac task=Ant num_envs=4096 max_time=600   # or algo=crossq
+    python -m pql_tpu_torch.train algo=ppo task=Ant task_param=true max_time=600
+    python -m pql_tpu_torch.train algo=ippo task=BimanualReacher num_envs=4096 max_time=600   # or algo=mappo
 
 A PQL run, as the JAX package's:
 
@@ -33,14 +35,15 @@ A PQL run, as the JAX package's:
 - with ``profile_dir``, a ``torch.profiler`` Chrome trace of
   ``profile_iters`` iterations from iteration 2 on.
 
-A DDPG, SAC or CrossQ run (``train_baseline``), as the JAX package's: the
-same start (artifact, full-state resume, else warm-up), then one
-``train_iter`` (explore ``horizon_len`` steps, ``update_times`` updates) per
-iteration until the stop check; every ``algo.log_freq`` iterations a
-metrics record with the measured ``speed/env_steps_per_s``; every
-``algo.eval_freq`` iterations an eval run at once on the live actor and
-normalizer, a new best ``eval/return`` saving them to ``run_dir/best_model``;
-the periodic full checkpoint as above. ``env_steps`` counts total env steps.
+A DDPG, SAC, CrossQ, PPO, IPPO or MAPPO run (``train_baseline``), as the
+JAX package's: the same start (artifact, full-state resume, else the
+warm-up of an agent that has one; the on-policy agents have none), then one
+``train_iter`` per iteration until the stop check; every ``algo.log_freq``
+iterations a metrics record with the measured ``speed/env_steps_per_s``;
+every ``algo.eval_freq`` iterations an eval run at once on the live actor
+(IPPO's: all its networks) and normalizer, a new best ``eval/return`` saving
+them and the critics to ``run_dir/best_model``; the periodic full checkpoint
+as above. ``env_steps`` counts total env steps.
 
 Records go to ``logging.out_dir/run_name/metrics.jsonl`` and the console
 (``utils/logging.py``). The run is on the card unless ``--device=cpu``.
@@ -242,7 +245,7 @@ def _start(cfg, agent, state, dev):
     """Artifact, then full-state resume, then warm-up unless resumed; the
     evaluator and its generator. Returns (state, resumed, evaluator, eval_gen)."""
     if cfg.artifact:  # weights-only start (reference model_util.py:9-21)
-        state = restore_into_state(state, load_model_snapshot(cfg.artifact))
+        state = restore_into_state(state, load_model_snapshot(cfg.artifact), agent.snapshot_parts(state))
     state, resumed = maybe_resume_full_state(cfg, state)
     evaluator = Evaluator(cfg, make_eval_env(cfg), agent.eval_actor_apply, dev)
     eval_gen = torch.Generator(device=dev).manual_seed(cfg.seed + EVAL_SEED_OFFSET)
@@ -250,19 +253,20 @@ def _start(cfg, agent, state, dev):
 
 
 def train_baseline(cfg, logger: RunLogger, device: str | torch.device = "cuda"):
-    """The synchronous DDPG / SAC / CrossQ loop (scripts/train.py:260-314);
-    returns the agent and its final state."""
+    """The synchronous DDPG / SAC / CrossQ / PPO / IPPO / MAPPO loop
+    (scripts/train.py:260-314); returns the agent and its final state."""
     agent = get_algo(cfg.algo.name)(cfg, device)
     dev = agent.device
+    has_warmup = hasattr(agent, "warmup")
     state, resumed, evaluator, eval_gen = _start(cfg, agent, agent.init(), dev)
     if resumed:
         print(f"resumed the full state from {os.path.join(cfg.checkpoint_dir, 'state')} at env step "
               f"{state.env_steps} (no warm-up)", flush=True)
-    else:
+    elif has_warmup:
         state, _ = agent.warmup(state)
 
     best_ret = float("-inf")
-    it = _resumed_iter(cfg, state, resumed)  # env_steps counts total env steps
+    it = _resumed_iter(cfg, state, resumed, has_warmup=has_warmup)  # env_steps counts total env steps
     log_gate = _Every(cfg.algo.log_freq, it)
     eval_gate = _Every(cfg.algo.eval_freq, it)
     ckpt_gate = _checkpoint_gate(cfg, it)
@@ -281,12 +285,12 @@ def train_baseline(cfg, logger: RunLogger, device: str | torch.device = "cuda"):
                 last_log, last_steps = now, steps
                 logger.log(host, step=steps)
             if eval_gate(it):  # synchronous, on the live actor and normalizer
-                eval_metrics = evaluator.eval_policy(state.actor, state.obs_rms, eval_gen)
+                eval_metrics = evaluator.eval_policy(agent.eval_params(state), state.obs_rms, eval_gen)
                 logger.log(eval_metrics, step=steps)
                 if eval_metrics["eval/return"] > best_ret and logger.run_dir:
                     best_ret = eval_metrics["eval/return"]
-                    save_model_snapshot(os.path.join(logger.run_dir, "best_model"), state.actor, state.critic,
-                                        state.obs_rms)
+                    save_model_snapshot(os.path.join(logger.run_dir, "best_model"),
+                                        *agent.snapshot_parts(state), state.obs_rms)
             _maybe_full_checkpoint(cfg, ckpt_gate, it, state)
             if evaluator.check_if_should_stop(steps):
                 break

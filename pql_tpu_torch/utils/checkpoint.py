@@ -4,20 +4,23 @@ Two kinds, each a directory holding one ``torch.save`` file (the JAX
 package writes orbax directories; the formats differ):
 
 - the **full state** (``save_checkpoint`` / ``load_checkpoint``,
-  ``<dir>/state.pt``) of a ``PQLState`` or of a baseline's
-  ``OffPolicyState`` / ``SACState``: the actor, critic and target weights
-  (the actor target where the state has one; a CrossQ critic's BatchNorm
-  statistics are its buffers) and the optimizers' ``state_dict``s, SAC's
-  ``log_alpha`` and its optimizer, the obs normalizer, the env state and obs,
-  the n-step FIFO, the replay ring with its pointer and write count, the
-  episode accumulators and trackers (PQL's three, or a baseline's
+  ``<dir>/state.pt``) of a ``PQLState``, of a baseline's ``OffPolicyState``
+  / ``SACState`` or of an on-policy ``PPOState`` (PPO, MAPPO) /
+  ``IPPOState``: the actor, critic and target weights (the actor target
+  where the state has one; a CrossQ critic's BatchNorm statistics are its
+  buffers; IPPO's ``nets``) and the optimizers' ``state_dict``s (IPPO's
+  ``opts``), SAC's ``log_alpha`` and its optimizer, the obs normalizer and
+  the value normalizers, the env state, obs and (on-policy) the dones, the
+  n-step FIFO and the replay ring with its pointer and write count
+  (off-policy), the episode accumulators and trackers (PQL's three, or an
   ``EpisodeStats``), the generator's state (a CUDA generator's on the card)
   and the counters. ``maybe_resume_full_state`` restores it into a freshly
   built state, and training continues bitwise as if it had not stopped;
 - the **weights-only snapshot** (``save_model_snapshot`` /
   ``load_model_snapshot``, ``<dir>/snapshot.pt``): ``{actor, critic,
-  obs_rms}``, the reference's best-model payload. ``restore_into_state``
-  loads it, the targets from ``actor`` and ``critic``. ``utils/convert.py``'s
+  obs_rms}``, the reference's best-model payload, of the modules the
+  agent's ``snapshot_parts`` names. ``restore_into_state`` loads it, the
+  targets from ``actor`` and ``critic``. ``utils/convert.py``'s
   ``snapshot_from_jax`` makes one from a JAX snapshot.
 
 A file is written beside its final name and renamed into place, so a run
@@ -33,8 +36,9 @@ import torch
 
 STATE_FILE = "state.pt"
 SNAPSHOT_FILE = "snapshot.pt"
-_MODULES = ("actor", "critic", "actor_target", "critic_target")  # a state may hold None for a target
-_OPTIMIZERS = ("actor_opt", "critic_opt", "alpha_opt")
+_MODULES = ("actor", "critic", "actor_target", "critic_target", "nets")  # a state may hold None for a target
+_OPTIMIZERS = ("actor_opt", "critic_opt", "alpha_opt", "opts")  # opts: a dict of optimizers
+_NORMS = ("obs_rms", "value_rms", "value_rms_left")
 _TRACKERS = ("return_tracker", "len_tracker", "success_tracker")  # PQL's
 _NSTEP = ("obs", "action", "reward", "next_obs", "done")
 _COUNTERS = ("env_steps", "critic_update_count", "actor_update_count", "update_count")
@@ -61,20 +65,39 @@ def _present(state, names) -> list[str]:
     return [n for n in names if getattr(state, n, None) is not None]
 
 
+def _sd(x) -> dict:
+    """A module's or optimizer's ``state_dict``, or a dict of them."""
+    return {k: v.state_dict() for k, v in x.items()} if isinstance(x, dict) else x.state_dict()
+
+
+def _load_sd(x, sd: dict) -> None:
+    if not isinstance(x, dict):
+        x.load_state_dict(sd)
+        return
+    if set(sd) != set(x):
+        raise ValueError(f"checkpoint holds {sorted(sd)}, this state {sorted(x)}")
+    for k, v in x.items():
+        v.load_state_dict(sd[k])
+
+
 def state_dict(state) -> dict:
-    """Everything of a ``PQLState``, ``OffPolicyState`` or ``SACState`` as
-    tensors, numbers and dicts (the live tensors, not copies)."""
-    sd = {n: getattr(state, n).state_dict() for n in _present(state, _MODULES + _OPTIMIZERS)}
+    """Everything of a ``PQLState``, ``OffPolicyState``, ``SACState``,
+    ``PPOState`` or ``IPPOState`` as tensors, numbers and dicts (the live
+    tensors, not copies)."""
+    sd = {n: _sd(getattr(state, n)) for n in _present(state, _MODULES + _OPTIMIZERS)}
+    sd.update({n: _rms(getattr(state, n)) for n in _present(state, _NORMS)})
     sd.update(
-        obs_rms=_rms(state.obs_rms),
         env_state=dict(state=dict(state.env_state.state), time=state.env_state.time),
         obs=state.obs,
-        nstep=dict({k: getattr(state.nstep, k) for k in _NSTEP}, count=state.nstep.count),
-        replay=dict(data=state.replay.data, ptr=state.replay.ptr, total_writes=state.replay.total_writes),
         gen=state.gen.get_state(),
         counters={k: getattr(state, k) for k in _COUNTERS if hasattr(state, k)},
     )
-    if hasattr(state, "stats"):  # a baseline's EpisodeStats
+    if hasattr(state, "dones"):  # on-policy
+        sd["dones"] = state.dones
+    if hasattr(state, "replay"):  # off-policy
+        sd.update(nstep=dict({k: getattr(state.nstep, k) for k in _NSTEP}, count=state.nstep.count),
+                  replay=dict(data=state.replay.data, ptr=state.replay.ptr, total_writes=state.replay.total_writes))
+    if hasattr(state, "stats"):  # an EpisodeStats
         sd["stats"] = state.stats.state_dict()
     else:
         sd.update(cur_returns=state.cur_returns, cur_lengths=state.cur_lengths,
@@ -88,32 +111,37 @@ def state_dict(state) -> dict:
 @torch.no_grad()
 def load_state_dict(state, sd: dict):
     """Write a ``state_dict`` into a state built for the same config, on its
-    device. Modules, optimizers, ``log_alpha``, the normalizer, the replay
-    ring and the trackers are written in place; the env state, obs, n-step
-    FIFO and accumulators become new tensors (a graphed task copies its
-    inputs into its graph's buffers on every step)."""
+    device. Modules, optimizers, ``log_alpha``, the normalizers, the replay
+    ring and the trackers are written in place; the env state, obs, dones,
+    n-step FIFO and accumulators become new tensors (a graphed task copies
+    its inputs into its graph's buffers on every step)."""
     dev = state.obs.device
-    held = _present(state, _MODULES + _OPTIMIZERS)
-    if set(held) != set(sd) & set(_MODULES + _OPTIMIZERS):
-        raise ValueError(f"checkpoint holds {sorted(set(sd) & set(_MODULES + _OPTIMIZERS))}, this state {sorted(held)}")
+    kinds = _MODULES + _OPTIMIZERS
+    held = _present(state, kinds)
+    if set(held) != set(sd) & set(kinds):
+        raise ValueError(f"checkpoint holds {sorted(set(sd) & set(kinds))}, this state {sorted(held)}")
     for name in held:
-        getattr(state, name).load_state_dict(sd[name])
+        _load_sd(getattr(state, name), sd[name])
     if "log_alpha" in sd:
         state.log_alpha.copy_(sd["log_alpha"])
-    for k, v in sd["obs_rms"].items():
-        getattr(state.obs_rms, k).copy_(v)
+    for name in _present(state, _NORMS):
+        for k, v in sd[name].items():
+            getattr(getattr(state, name), k).copy_(v)
     state.env_state.state = {k: v.to(dev) for k, v in sd["env_state"]["state"].items()}
     state.env_state.time = sd["env_state"]["time"].to(dev)
     state.obs = sd["obs"].to(dev)
-    for k in _NSTEP:
-        setattr(state.nstep, k, sd["nstep"][k].to(dev))
-    state.nstep.count = sd["nstep"]["count"]
-    replay = sd["replay"]
-    if replay["data"].shape != state.replay.data.shape:
-        raise ValueError(f"checkpoint replay ring {tuple(replay['data'].shape)}, "
-                         f"this config's {tuple(state.replay.data.shape)}")
-    state.replay.data.copy_(replay["data"])
-    state.replay.ptr, state.replay.total_writes = replay["ptr"], replay["total_writes"]
+    if "dones" in sd:
+        state.dones = sd["dones"].to(dev)
+    if "replay" in sd:
+        for k in _NSTEP:
+            setattr(state.nstep, k, sd["nstep"][k].to(dev))
+        state.nstep.count = sd["nstep"]["count"]
+        replay = sd["replay"]
+        if replay["data"].shape != state.replay.data.shape:
+            raise ValueError(f"checkpoint replay ring {tuple(replay['data'].shape)}, "
+                             f"this config's {tuple(state.replay.data.shape)}")
+        state.replay.data.copy_(replay["data"])
+        state.replay.ptr, state.replay.total_writes = replay["ptr"], replay["total_writes"]
     if "stats" in sd:
         state.stats.load_state_dict(sd["stats"])
     else:
@@ -188,18 +216,20 @@ def _load_weights(module: torch.nn.Module, weights: dict) -> None:
 
 
 @torch.no_grad()
-def restore_into_state(state, snapshot: dict):
-    """Weights-only resume: the actor, the critic and the targets the state
-    has (from ``actor`` and ``critic``), and the obs normalizer; optimizers
-    and all else stay fresh (reference train_baselines.py:33-37,
+def restore_into_state(state, snapshot: dict, parts=None):
+    """Weights-only resume: ``parts``, the modules the agent saves as the
+    snapshot's actor and critic (its ``snapshot_parts(state)``; by default
+    the state's actor and critic), and the targets the state has take
+    ``actor`` and ``critic``; the obs normalizer its own; optimizers and all
+    else stay fresh (reference train_baselines.py:33-37,
     pql_v_learner.py:44-45)."""
     rms = snapshot.get("obs_rms")
     if rms is not None:
         for k in ("mean", "var", "count"):
             getattr(state.obs_rms, k).copy_(torch.as_tensor(rms[k]))
-    for name in ("actor", "critic"):
+    for name, module in zip(("actor", "critic"), parts or (state.actor, state.critic)):
         if name in snapshot:
-            for module in (getattr(state, name), getattr(state, f"{name}_target", None)):
-                if module is not None:
-                    _load_weights(module, snapshot[name])
+            for m in (module, getattr(state, f"{name}_target", None)):
+                if m is not None:
+                    _load_weights(m, snapshot[name])
     return state

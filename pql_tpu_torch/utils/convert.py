@@ -1,12 +1,13 @@
-"""Carry weights and PQL, DDPG, SAC and CrossQ states from the JAX package into the port.
+"""Carry weights and PQL, DDPG, SAC, CrossQ, PPO, IPPO and MAPPO states from the JAX package into the port.
 
 Inputs are plain nested dicts of numpy arrays (no JAX object crosses), so
 this module imports nothing of JAX:
 
 - ``params_from_jax(tree)`` takes flax params, e.g.
   ``{'params': {'net_q1': {'TorchLinear_0': {'kernel', 'bias'}, ...}}}``
-  (the actor's trunk is ``MLPNet_0``), and returns a ``state_dict`` for the
-  port's module. A flax kernel is ``[in, out]``; ``nn.Linear`` keeps
+  (the actor's trunk is ``MLPNet_0``), or a dict of such trees by network
+  name (IPPO's), and returns a ``state_dict`` for the port's module (or
+  ``nn.ModuleDict``). A flax kernel is ``[in, out]``; ``nn.Linear`` keeps
   ``[out, in]``.
 - ``pql_state_from_jax(tree, layout)`` converts a whole PQL state. ``tree``
   holds, as numpy: ``actor_params``, ``critic_params``, ``critic_target``
@@ -34,6 +35,15 @@ this module imports nothing of JAX:
   (a tracker ``{'ring', 'ptr', 'count'}``); ``env_steps``, ``update_count``;
   SAC's ``log_alpha`` and ``alpha_opt`` ``{'mu', 'nu', 'count'}`` (arrays
   of shape [1]); CrossQ's ``batch_stats``.
+- ``ppo_state_from_jax(tree)`` / ``load_ppo_state`` do the same for a PPO
+  or MAPPO state: ``actor_params``, ``critic_params``, ``actor_opt``,
+  ``critic_opt``, ``obs_rms``, ``value_rms``, ``env_state``, ``obs``,
+  ``dones``, ``stats`` (as above), ``env_steps``, ``update_count``.
+  ``ma_state_from_jax(tree)`` converts an IPPO state, whose ``params`` and
+  ``opts`` are dicts by network name (``actor``, ``critic``[,
+  ``actor_left``, ``critic_left``]) and which has ``value_rms_left`` too
+  (a tree without ``params`` goes to ``ppo_state_from_jax``);
+  ``load_ppo_state`` writes either into the port's state.
 - ``snapshot_from_jax(tree, actor, critic)`` converts the ``{actor, critic,
   obs_rms}`` payload of the JAX ``save_model_snapshot`` (read from its orbax
   directory on the JAX side, as numpy) into the port's weights-only
@@ -67,11 +77,13 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 
     def walk(node, prefix):
         for key, val in node.items():
-            if isinstance(val, dict):
+            if key == "params":  # a nested tree of params by network name (a two-agent snapshot)
+                walk(val, prefix)
+            elif isinstance(val, dict):
                 walk(val, prefix + [_module_name(key)])
             elif key == "kernel":
                 out[".".join(prefix + ["weight"])] = torch.from_numpy(np.array(np.asarray(val).T))
-            elif key in ("bias", "scale", "mean", "var"):
+            elif key in ("bias", "scale", "mean", "var", "logstd"):
                 out[".".join(prefix + [key])] = torch.from_numpy(np.array(val))
             else:
                 raise KeyError(f"unexpected flax leaf {'/'.join(prefix + [key])}")
@@ -158,18 +170,29 @@ def _tensor(x, dtype=None) -> torch.Tensor:
     return t if dtype is None else t.to(dtype)
 
 
+def _rms_from_jax(rms: dict) -> dict:
+    return {k: _tensor(rms[k], torch.float32) for k in ("mean", "var", "count")}
+
+
+def _env_from_jax(tree: dict) -> dict:
+    """The obs normalizer, env state and obs of a JAX state."""
+    return dict(
+        obs_rms=_rms_from_jax(tree["obs_rms"]),
+        env_state=dict(
+            state={k: _tensor(v) for k, v in tree["env_state"]["state"].items()},
+            time=_tensor(tree["env_state"]["time"], torch.int32),
+        ),
+        obs=_tensor(tree["obs"]),
+    )
+
+
 def _env_parts_from_jax(tree: dict, layout) -> dict:
     """The obs normalizer, env state, obs, n-step FIFO and replay of a JAX state."""
     data = np.asarray(tree["replay"]["data"])
     fields = {name: _tensor(data[..., s : s + d]) for name, s, d in layout}
     nstep = tree["nstep"]
     return dict(
-        obs_rms={k: _tensor(tree["obs_rms"][k], torch.float32) for k in ("mean", "var", "count")},
-        env_state=dict(
-            state={k: _tensor(v) for k, v in tree["env_state"]["state"].items()},
-            time=_tensor(tree["env_state"]["time"], torch.int32),
-        ),
-        obs=_tensor(tree["obs"]),
+        **_env_from_jax(tree),
         nstep=dict(
             {k: _tensor(nstep[k]) for k in ("obs", "action", "reward", "next_obs", "done")},
             count=int(nstep["count"]),
@@ -236,6 +259,39 @@ def offpolicy_state_from_jax(tree: dict, layout) -> dict:
     return out
 
 
+def ppo_state_from_jax(tree: dict) -> dict:
+    """A whole JAX PPO or MAPPO state (as numpy, see the module doc) → port tensors."""
+    return dict(
+        actor=params_from_jax(tree["actor_params"]),
+        critic=params_from_jax(tree["critic_params"]),
+        actor_opt=_opt_from_jax(tree["actor_opt"]),
+        critic_opt=_opt_from_jax(tree["critic_opt"]),
+        **_onpolicy_parts_from_jax(tree),
+    )
+
+
+def ma_state_from_jax(tree: dict) -> dict:
+    """A whole JAX IPPO state (or, without ``params``, a MAPPO one) → port tensors."""
+    if "params" not in tree:
+        return ppo_state_from_jax(tree)
+    return dict(
+        nets=params_from_jax(tree["params"]),
+        opts={name: _opt_from_jax(o) for name, o in tree["opts"].items()},
+        value_rms_left=_rms_from_jax(tree["value_rms_left"]),
+        **_onpolicy_parts_from_jax(tree),
+    )
+
+
+def _onpolicy_parts_from_jax(tree: dict) -> dict:
+    return dict(
+        **_env_from_jax(tree),
+        value_rms=_rms_from_jax(tree["value_rms"]),
+        dones=_tensor(tree["dones"]),
+        stats=_stats_from_jax(tree["stats"]),
+        counters={k: int(tree[k]) for k in ("env_steps", "update_count")},
+    )
+
+
 def _adam_state(opt: torch.optim.Optimizer, p: torch.Tensor, exp_avg, exp_avg_sq, step: int) -> None:
     opt.state[p] = dict(
         step=torch.tensor(float(step), dtype=torch.float32),
@@ -250,13 +306,20 @@ def _load_module_opt(module: torch.nn.Module, opt: torch.optim.Optimizer, sd: di
         _adam_state(opt, p, o["exp_avg"][pname], o["exp_avg_sq"][pname], o["step"])
 
 
-def _load_env_parts(state, conv: dict) -> None:
+def _load_env(state, conv: dict) -> None:
     dev = state.obs.device
-    for k in ("mean", "var", "count"):
-        getattr(state.obs_rms, k).copy_(conv["obs_rms"][k])
+    for name in ("obs_rms", "value_rms", "value_rms_left"):
+        if name in conv:
+            for k in ("mean", "var", "count"):
+                getattr(getattr(state, name), k).copy_(conv[name][k])
     state.env_state.state = {k: v.to(dev) for k, v in conv["env_state"]["state"].items()}
     state.env_state.time = conv["env_state"]["time"].to(dev)
     state.obs = conv["obs"].to(dev)
+
+
+def _load_env_parts(state, conv: dict) -> None:
+    dev = state.obs.device
+    _load_env(state, conv)
     for k in ("obs", "action", "reward", "next_obs", "done"):
         setattr(state.nstep, k, conv["nstep"][k].to(dev))
     state.nstep.count = conv["nstep"]["count"]
@@ -302,5 +365,24 @@ def load_offpolicy_state(state, conv: dict) -> None:
         state.log_alpha.copy_(conv["log_alpha"])
         o = conv["alpha_opt"]
         _adam_state(state.alpha_opt, state.log_alpha, o["exp_avg"], o["exp_avg_sq"], o["step"])
+    for k, v in conv["counters"].items():
+        setattr(state, k, v)
+
+
+@torch.no_grad()
+def load_ppo_state(state, conv: dict) -> None:
+    """Write a ``ppo_state_from_jax`` or ``ma_state_from_jax`` conversion into
+    a port PPOState or IPPOState in place."""
+    if "nets" in conv:
+        state.nets.load_state_dict(conv["nets"])
+        for name, o in conv["opts"].items():
+            for pname, p in state.nets[name].named_parameters():
+                _adam_state(state.opts[name], p, o["exp_avg"][pname], o["exp_avg_sq"][pname], o["step"])
+    else:
+        _load_module_opt(state.actor, state.actor_opt, conv["actor"], conv["actor_opt"])
+        _load_module_opt(state.critic, state.critic_opt, conv["critic"], conv["critic_opt"])
+    _load_env(state, conv)
+    state.dones = conv["dones"].to(state.obs.device)
+    state.stats.load_state_dict(conv["stats"])
     for k, v in conv["counters"].items():
         setattr(state, k, v)

@@ -307,20 +307,21 @@ def test_episode_stats_match_jax():
         EpisodeStats(E, L, info_keys=("a",), info_modes=("every",), device="cpu")
 
 
-@pytest.mark.parametrize("name", ["PPO", "IPPO", "EQ", "DDPGV"])
+@pytest.mark.parametrize("name", ["IDDPG", "EQS", "EQ", "DDPGV"])
 def test_get_algo_refuses_unported(name):
-    with pytest.raises(NotImplementedError, match=r"not ported yet; ported: \['CrossQ', 'DDPG', 'PQL', 'SAC'\]"):
+    with pytest.raises(NotImplementedError, match=r"not ported yet; ported: \['CrossQ', 'DDPG', 'IPPO', 'MAPPO', "
+                                                  r"'PPO', 'PQL', 'SAC'\]"):
         get_algo(name)
 
 
 def test_config_refuses_unported(tmp_path):
-    with pytest.raises(ValueError, match="Unknown algo 'ppo'"):
-        parse_cli(["algo=ppo"])
-    with pytest.raises(NotImplementedError, match="'PPO' is not ported yet"):
-        train.main(["algo=ddpg", "algo.name=PPO", f"logging.out_dir={tmp_path}", "--device=cpu"])
+    with pytest.raises(ValueError, match="Unknown algo 'ppov'"):
+        parse_cli(["algo=ppov"])
+    with pytest.raises(NotImplementedError, match="'PPOV' is not ported yet"):
+        train.main(["algo=ddpg", "algo.name=PPOV", f"logging.out_dir={tmp_path}", "--device=cpu"])
     assert not os.listdir(tmp_path)  # refused before the run directory is made
-    with pytest.raises(AttributeError, match="No config field 'algo.lambda_gae_adv'"):
-        parse_cli(["algo=ddpg", "algo.lambda_gae_adv=0.9"])
+    with pytest.raises(AttributeError, match="No config field 'algo.diffusion_iter'"):
+        parse_cli(["algo=ddpg", "algo.diffusion_iter=3"])
     cfg = parse_cli(["algo=sac", "info_track_keys=[success]", "algo.alpha=0.2"])
     assert (cfg.algo.name, cfg.algo.act_class, cfg.info_track_keys, cfg.algo.alpha) == (
         "SAC", "TanhDiagGaussianMLPPolicy", ("success",), 0.2)

@@ -19,6 +19,7 @@ from chip_smoke import (
     BASELINE_ALGOS,
     C51_CASES,
     DDPG_THRESHOLD,
+    FRANKA_MAX_FLIPS,
     HAND_MAX_FLIPS,
     HAND_TASKS,
     LEARNING_THRESHOLD,
@@ -29,6 +30,7 @@ from chip_smoke import (
     c51_logit_scale,
     envs_beyond_tol,
     learning_gate_return,
+    ppo_reference,
     state_diffs,
     step_tol,
 )
@@ -215,7 +217,7 @@ def _fields(res):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", RIGID_TASKS + HAND_TASKS)
+@pytest.mark.parametrize("name", RIGID_TASKS + HAND_TASKS + ("FrankaCubeStack",))
 def test_rigid_graphed_step_equals_eager_bitwise(cuda, name):
     """The captured control step and the same function run eagerly on the
     card: no reductions across envs, the same kernels in the same order. The
@@ -254,18 +256,19 @@ def test_graphed_step_info_not_aliased_across_replays(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", RIGID_TASKS + HAND_TASKS)
+@pytest.mark.parametrize("name", RIGID_TASKS + HAND_TASKS + ("FrankaCubeStack",))
 def test_rigid_card_matches_cpu(cuda, name):
     """One control step on the card (graphed) against the CPU, from a state
     rolled out on the card (tolerances and flips: chip_smoke.step_tol,
-    PHYS_MAX_FLIPS of 4096 envs for the rigid tasks, HAND_MAX_FLIPS of 8192
-    for the hand)."""
+    PHYS_MAX_FLIPS of 4096 envs for the rigid tasks, HAND_MAX_FLIPS and
+    FRANKA_MAX_FLIPS of 8192 for the hand and FrankaCubeStack)."""
     E = 1024
     task, state, action, draw = _task_state(name, E, 20, cuda)
     got = _fields(task.dynamics(state, action, *draw))
     want = _fields(task.control_step({k: v.cpu() for k, v in state.items()}, action.cpu(), *(x.cpu() for x in draw)))
     flips, _ = envs_beyond_tol(got, want, step_tol(task), E)
-    allowed = HAND_MAX_FLIPS * E // 8192 if name in HAND_TASKS else PHYS_MAX_FLIPS * E // 4096
+    allowed = {**{n: HAND_MAX_FLIPS for n in HAND_TASKS}, "FrankaCubeStack": FRANKA_MAX_FLIPS}.get(name)
+    allowed = allowed * E // 8192 if allowed else PHYS_MAX_FLIPS * E // 4096
     assert len(flips) <= max(allowed, 1), flips
 
 
@@ -428,3 +431,51 @@ def test_ddpg_learning_gate_on_card(cuda):
     card: seed 0, the best eval return at iterations 200, 225 and 250 > 400
     (``chip_smoke.DDPG_EVALS``)."""
     assert learning_gate_return("ddpg", seed=0, device=cuda) > DDPG_THRESHOLD
+
+
+ON_POLICY = [("ppo", "Cartpole", {}), ("ppo", "Ant", dict(algo__value_norm=True)),
+             ("ppo", "FrankaCubeStack", {}), ("ippo", "BimanualReacher", {}),
+             ("ippo", "BimanualReacherSym", dict(algo__same_policy=True)), ("mappo", "BimanualReacher", {})]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo,task,extra", ON_POLICY, ids=lambda x: x if isinstance(x, str) else "")
+def test_onpolicy_iterates_on_card(cuda, algo, task, extra):
+    """Three iterations on the card: epochs x minibatches updates and H x E
+    env steps per iteration, finite losses and episode statistics, no warm-up."""
+    E = 64
+    cfg = make_config(algo, task=task, num_envs=E, algo__horizon_len=8, algo__batch_size=128, **extra)
+    agent = get_algo(cfg.algo.name)(cfg, device=cuda)
+    assert not hasattr(agent, "warmup")
+    s = agent.init(seed=0)
+    for _ in range(3):
+        s, m = agent.train_iter(s)
+        assert all(bool(torch.isfinite(v)) for v in m.values()), m
+    assert (s.update_count, s.env_steps) == (3 * 4 * agent.rows // 128, 3 * 8 * E)
+    assert s.obs.device.type == "cuda" and s.stats.return_tracker.ring.device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_onpolicy_on_card_matches_cpu(cuda):
+    """chip_smoke's ppo_reference: two iterations of PPO, IPPO (both
+    same_policy settings) and MAPPO on the card and the CPU from the same
+    state and draws (it raises on a difference beyond its tolerances)."""
+    assert len(ppo_reference(cuda)["runs"]) == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo,task,extra", ON_POLICY, ids=lambda x: x if isinstance(x, str) else "")
+def test_onpolicy_kill_and_resume_bitwise_on_card(cuda, tmp_path, algo, task, extra):
+    """As the PQL case above, for the on-policy states (the value
+    normalizers, dones and IPPO's per-network optimizers included)."""
+    cfg = make_config(algo, task=task, num_envs=64, algo__horizon_len=8, algo__batch_size=128, **extra)
+    agent = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s, _ = agent.train_iter(agent.init(seed=0))
+    checkpoint.save_checkpoint(str(tmp_path / "state"), s)
+    for _ in range(2):
+        s, _ = agent.train_iter(s)
+    agent2 = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s2 = checkpoint.load_checkpoint(str(tmp_path / "state"), agent2.init(seed=7))
+    for _ in range(2):
+        s2, _ = agent2.train_iter(s2)
+    assert state_diffs(s, s2) == []

@@ -83,6 +83,11 @@ def _reset_draw(env: JVecEnv, k_reset) -> np.ndarray:
          "checkpoint_dir=ckpt", "checkpoint_freq=50", "algo.eval_freq=50", "algo.adaptive_ratios=true",
          "algo.adapt_window=4", "algo.sample_slots=8", "algo.prefetch_batches=true", "artifact=snap",
          "profile_dir=trace", "profile_iters=5"],
+        ["algo=ppo", "task=Ant", "task_param=true"],
+        ["algo=ppo", "task=FrankaCubeStack", "task_param=true", "algo.lambda_entropy=0.01", "algo.use_gae=false"],
+        ["algo=ppo", "task=Humanoid", "task_param=true", "algo.value_clip=false", "algo.ratio_clip=0.1"],
+        ["algo=ippo", "task=BimanualReacher", "num_envs=4096", "algo.same_policy=true"],
+        ["algo=mappo", "task=BimanualReacherSym", "algo.value_norm=true", "algo.lambda_gae_adv=0.9"],
     ],
 )
 def test_cfg_parse_cli_matches(argv):
@@ -97,9 +102,9 @@ def test_cfg_parse_cli_matches(argv):
 
 def test_cfg_rejects_knobs_the_port_lacks():
     with pytest.raises(AttributeError):
-        tcfg.parse_cli(["algo=pql", "algo.lambda_gae_adv=0.9"])  # a PPO knob
+        tcfg.parse_cli(["algo=pql", "algo.diffusion_iter=3"])  # a diffusion-policy knob
     with pytest.raises(ValueError):
-        tcfg.parse_cli(["algo=ppo"])
+        tcfg.parse_cli(["algo=iddpg"])
 
 
 # ----------------------------------------------------------------- envs

@@ -89,7 +89,26 @@ def _ball_balance(key):  # :245-252: tilt, ball
                             jax.random.uniform(k2, (2,), jnp.float32, -0.25, 0.25)])
 
 
-CLASSIC_DRAWS = {"Pendulum": _pendulum, "PointMass": _point_mass, "Reacher": _reacher, "BallBalance": _ball_balance}
+def _franka(key):  # pql_tpu/envs/manip.py:109-132: joint offsets (k1), cube A (k2), cube B (k3)
+    k1, k2, k3 = jax.random.split(key, 3)
+    return jnp.concatenate([jax.random.uniform(k1, (7,), jnp.float32, -0.1, 0.1),
+                            jax.random.uniform(k2, (2,), jnp.float32, 0.25, 0.45),
+                            jax.random.uniform(k3, (2,), jnp.float32, -0.45, -0.25)])
+
+
+def _bimanual(symmetric):  # pql_tpu/envs/bimanual.py:92-108: q (k_q), the target's uniform bits (k_t), sym (k_sym)
+    def one(key):
+        k_q, k_t, k_sym = jax.random.split(key, 3)
+        sym = jax.random.bernoulli(k_sym).astype(jnp.float32) if symmetric else jnp.zeros((), jnp.float32)
+        return jnp.concatenate([jax.random.uniform(k_q, (2, 2), jnp.float32, -0.1, 0.1).reshape(4),
+                                jax.random.uniform(k_t, (2, 1), jnp.float32).reshape(2), sym[None]])
+
+    return one
+
+
+CLASSIC_DRAWS = {"Pendulum": _pendulum, "PointMass": _point_mass, "Reacher": _reacher, "BallBalance": _ball_balance,
+                 "FrankaCubeStack": _franka, "BimanualReacher": _bimanual(False),
+                 "BimanualReacherSym": _bimanual(True)}
 
 
 def jax_reset_draws(task, keys) -> torch.Tensor:

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Eval-return traces of the Cartpole learning gates, per seed.
+"""Eval-return traces of the learning gates, per seed.
 
     python3 tools/gate_trace.py --package=port --device=cuda --seeds 0 1 2 3 4
     python3 tools/gate_trace.py --package=port --device=cpu --algo=pql_d --seeds 0 1 2
     python3 tools/gate_trace.py --package=jax --algo=ddpg --iters=250 --seeds 0 1 2   # the JAX package, on the CPU
+    python3 tools/gate_trace.py --package=jax --algo=ippo --every=10 --seeds 0 1 2
 
 The configurations are the JAX package's gates (``chip_smoke.GATES``):
 PQL and PQL-D on Cartpole with 256 envs, 32 eval envs, batch 1024, memory
 2e5, warm-up 16 (tests/test_learning.py:37-59; the JAX PQL on a one-device
 mesh), read at iteration 150; DDPG with 64 envs, 32 eval envs, batch 512,
 memory 1e5, warm-up 32, 8 updates per iteration (tests/test_learning.py:
-67-84), read at iteration 250. Every ``--every`` iterations up to
-``--iters`` it prints one JSON line: package, algo, device, seed,
-iteration, seconds since warm-up, train/return and the deterministic
-policy's eval/return and eval/episode_length (eval draws from seed 123 in
-both packages, each with its own generator).
+67-84), read at iteration 250; IPPO on BimanualReacher with 1024 envs,
+32 eval envs and batch 4096 (the JAX package's two-agent quick check),
+which has no warm-up and whose ``train/success_rate`` is the signal. Every
+``--every`` iterations up to ``--iters`` it prints one JSON line: package,
+algo, device, seed, iteration, seconds since warm-up, train/return,
+train/success_rate and the deterministic policy's eval/return and
+eval/episode_length (eval draws from seed 123 in both packages, each with
+its own generator).
 """
 
 from __future__ import annotations
@@ -39,14 +43,16 @@ def trace_port(algo: str, seed: int, device: str, iters: int, every: int):
 
     cfg = make_config(algo, seed=seed, **GATES[algo][0])
     agent = get_algo(cfg.algo.name)(cfg, device=device)
-    state, _ = agent.warmup(agent.init())
+    state = agent.init()
+    if hasattr(agent, "warmup"):
+        state, _ = agent.warmup(state)
     ev = Evaluator(cfg, make_eval_env(cfg), agent.eval_actor_apply, device)
     t0 = time.perf_counter()
     for it in range(1, iters + 1):
         state, m = agent.train_iter(state)
         if it % every == 0:
-            r = ev.eval_policy(state.actor, state.obs_rms, torch.Generator(device=device).manual_seed(123))
-            yield it, time.perf_counter() - t0, float(m["train/return"]), r
+            r = ev.eval_policy(agent.eval_params(state), state.obs_rms, torch.Generator(device=device).manual_seed(123))
+            yield it, time.perf_counter() - t0, m, r
 
 
 def trace_jax(algo: str, seed: int, iters: int, every: int):
@@ -64,14 +70,17 @@ def trace_jax(algo: str, seed: int, iters: int, every: int):
         agent = get_algo("PQL")(cfg, mesh=make_mesh(1))
     else:
         agent = get_algo(cfg.algo.name)(cfg, make_env(cfg))
-    state, _ = agent.warmup(agent.init(jax.random.PRNGKey(seed)))
+    state = agent.init(jax.random.PRNGKey(seed))
+    if hasattr(agent, "warmup"):
+        state, _ = agent.warmup(state)
     ev = Evaluator(cfg, make_eval_env(cfg), agent.eval_actor_apply)
+    params_of = getattr(agent, "eval_params_of", lambda s: s.actor_params)  # IPPO's hook (ippo.py:331-333)
     t0 = time.perf_counter()
     for it in range(1, iters + 1):
         state, m = agent.train_iter(state)
         if it % every == 0:
-            r = ev.eval_policy(state.actor_params, state.obs_rms, jax.random.PRNGKey(123))
-            yield it, time.perf_counter() - t0, float(m["train/return"]), r
+            r = ev.eval_policy(params_of(state), state.obs_rms, jax.random.PRNGKey(123))
+            yield it, time.perf_counter() - t0, m, r
 
 
 def main(argv=None) -> int:
@@ -88,9 +97,10 @@ def main(argv=None) -> int:
     for seed in args.seeds:
         steps = (trace_jax(args.algo, seed, iters, args.every) if args.package == "jax"
                  else trace_port(args.algo, seed, device, iters, args.every))
-        for it, secs, train_ret, r in steps:
+        for it, secs, m, r in steps:
             print(json.dumps(dict(package=args.package, algo=args.algo, device=device, seed=seed, iteration=it,
-                                  seconds=secs, train_return=train_ret, **r)), flush=True)
+                                  seconds=secs, train_return=float(m["train/return"]),
+                                  train_success_rate=float(m["train/success_rate"]), **r)), flush=True)
     return 0
 
 
