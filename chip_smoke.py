@@ -2,7 +2,7 @@
 """Quickest proof that the PyTorch/CUDA port starts on the GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --entry   # only the on-policy CLI runs (ENTRY_RUNS)
+    python3 chip_smoke.py --entry   # only the CLI acceptance runs (ENTRY_RUNS)
 
 Needs one CUDA card and nvcc; exits nonzero without them. Phases, one JSON
 line each:
@@ -97,9 +97,31 @@ line each:
    uninterrupted one;
 24. ippo_learning_gate — IPPO seed 0 on the JAX package's two-agent quick
    check (``IPPO_GATE``: BimanualReacher, 1024 envs, batch 4096):
-   train/success_rate after 50 iterations must reach 0.95.
+   train/success_rate after 50 iterations must reach 0.95;
+25. two_agent_reference — IDDPG's warm-up and two iterations, and two
+   iterations of QTOTV1 (value_norm), QTOTV2, IART, IPPOTeam (Sym task) and
+   IPPOTeam2, at a small size on the card and on the CPU, same state and
+   draws (``card_vs_cpu``: parameter steps within 1%, losses 1e-3, IDDPG's
+   replay 1e-4);
+26. iddpg_main_path — ``algo=iddpg task=BimanualReacher num_envs=4096`` at
+   its preset (batch 8192, memory 5e6: ring 1220 x 4096 x 55 fp32, 8
+   updates of both hands per iteration): warm-up and 56 iterations, as
+   baseline_main_path, with the replay's columns 28-29 holding two distinct
+   reward channels;
+27. team_main_path — QTOTV1, QTOTV2, IART, IPPOTeam and IPPOTeam2 on
+   BimanualReacher @4096 and IPPOTeam on BimanualReacherSym @4096 at their
+   presets (horizon 16, batch 32768, 4 epochs), as two_agent_main_path;
+28. iddpg_entry_path — ``train.main`` with IDDPG on BimanualReacher @4096,
+   the ring cut to 100 slots (``IDDPG_ENTRY_ARGV``): warm-up, an eval and a
+   checkpoint at iteration 12, the best model, the run resumed to 15 bitwise
+   equal to an uninterrupted one, and the seconds of one more save and load
+   of the full state.
 
-Each main path, and each of phases 11, 12, 14, 16-18 and 20-24, resets the
+``--entry`` runs ``ENTRY_RUNS`` instead: PPO Ant and IPPO through
+ppo_entry_path, IDDPG at its full preset (ring 5e6) through
+baseline_entry_path.
+
+Each main path, and each of phases 11, 12, 14, 16-18 and 20-28, resets the
 kernels' launch counts just before it drives the port and reads them just
 after (0 ``c51_td_target`` launches on every on-policy path). Then the ``{"kernels": [...]}`` line, the nvidia-smi
 line, and last
@@ -228,14 +250,35 @@ TWO_AGENT_PATHS = [(("algo=ippo", "task=BimanualReacher", "num_envs=4096"), (2, 
                    (("algo=mappo", "task=BimanualReacher", "num_envs=4096"), (2, 2, 3, 1)),
                    (("algo=ippo", "task=BimanualReacherSym", "num_envs=4096", "algo.same_policy=true"), (2, 2, 3, 1))]
 SYM_TRACKER_BAND = (0.45, 0.55)  # the mirrored share of BimanualReacherSym's episodes
+# the rest of the two-agent tier: small card-vs-CPU runs, IDDPG at its preset
+# (batch 8192, memory 5e6: ring 1220 x 4096 x 55 fp32) and the five on-policy
+# agents at theirs (horizon 16, batch 32768, 4 epochs), each @4096
+TWO_AGENT_REF = [("iddpg", dict(BASELINE_REF, task="BimanualReacher")),
+                 ("qtotv1", dict(PPO_REF_SIZE, task="BimanualReacher", algo__value_norm=True)),
+                 ("qtotv2", dict(PPO_REF_SIZE, task="BimanualReacher")),
+                 ("iart", dict(PPO_REF_SIZE, task="BimanualReacher")),
+                 ("ippoteam", dict(PPO_REF_SIZE, task="BimanualReacherSym")),
+                 ("ippoteam2", dict(PPO_REF_SIZE, task="BimanualReacher"))]
+IDDPG_ARGV = ("algo=iddpg", "task=BimanualReacher", "num_envs=4096")
+IDDPG_DEPTH = (4, 5, 10, 2)  # warm, blocks x iterations timed, profiled: 56 iterations after the warm-up
+TEAM_PATHS = [((f"algo={a}", "task=BimanualReacher", "num_envs=4096"), (1, 2, 1, 1))
+              for a in ("qtotv1", "qtotv2", "iart", "ippoteam", "ippoteam2")] + [
+              (("algo=ippoteam", "task=BimanualReacherSym", "num_envs=4096"), (1, 2, 1, 1))]
+# the entry point's IDDPG run: the ring cut to 100 slots (409,600 transitions)
+# to keep the script's checkpoints small, stopped after 12 iterations (an eval
+# and a checkpoint at 12) and resumed to 15; ``--entry`` runs the full 5e6 ring
+IDDPG_ENTRY_ARGV = IDDPG_ARGV + ("algo.memory_size=409600",)
+IDDPG_ENTRY_ITERS = (12, 15)
 PPO_ENTRY_ARGV = ("algo=ppo", "task=Cartpole")  # 4096 envs, horizon 16, batch 32768, 4 epochs
 PPO_ENTRY_ITERS = (8, 12)  # the first run stops after 8 iterations, the resumed one after 12
 PPO_ENTRY_EVAL_FREQ = 4
 PPO_ENTRY_CKPT_FREQ = 4
-# ``python3 chip_smoke.py --entry``: the on-policy CLI runs, each through
-# ppo_entry_path, stopped after 4 iterations and resumed to 6 (an eval at 4)
+# ``python3 chip_smoke.py --entry``: the CLI acceptance runs; the on-policy
+# ones through ppo_entry_path, stopped after 4 iterations and resumed to 6
+# (an eval at 4), IDDPG (a warm-up) through baseline_entry_path
 ENTRY_RUNS = [(("algo=ppo", "task=Ant", "task_param=true"), (4, 6)),
-              (("algo=ippo", "task=BimanualReacher", "num_envs=4096"), (4, 6))]
+              (("algo=ippo", "task=BimanualReacher", "num_envs=4096"), (4, 6)),
+              (IDDPG_ARGV, BASELINE_ENTRY_ITERS)]
 SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
 
@@ -1230,7 +1273,8 @@ def baseline_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
     kernels.reset_launches()
     t0 = time.perf_counter()
     state = agent.init()
-    ring = (int(cfg.algo.memory_size) // E, E, 2 * agent.obs_dim + agent.action_dim + 2)
+    channels = 2 if cfg.algo.name == "IDDPG" else 1  # IDDPG's reward channels, one per hand
+    ring = (int(cfg.algo.memory_size) // E, E, 2 * agent.obs_dim + agent.action_dim + channels + 1)
     check(tuple(state.replay.data.shape) == ring, f"{label} replay ring {tuple(state.replay.data.shape)}, want {ring}")
     state, _ = agent.warmup(state)
     losses, block_ms = [], []
@@ -1284,6 +1328,14 @@ def baseline_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
     )
     if getattr(state, "log_alpha", None) is not None:
         out["log_alpha"] = float(state.log_alpha.detach())
+    if channels > 1:
+        start, dim = state.replay.field_range("reward")
+        reward = state.replay.field("reward")[: state.replay.filled]
+        check(dim == 2 and not torch.equal(reward[..., 0], reward[..., 1]),
+              f"{label}: replay columns {start}-{start + dim - 1} do not hold two distinct reward channels")
+        out.update(updates_per_iter=f"{cfg.algo.update_times} x 2 hands", replay_reward_columns=[start, start + 1],
+                   replay_reward_channel_means=reward.mean(dim=(0, 1)).tolist(),
+                   replay_reward_channels_differ_share=float((reward[..., 0] != reward[..., 1]).float().mean()))
     graphs = getattr(agent.env.task, "_graphs", None)
     if graphs and sim_ms is not None:
         out.update(sim_graph_device_ms_per_iter=sim_ms, learner_and_rest_device_ms_per_iter=kernel_ms - sim_ms,
@@ -1321,14 +1373,15 @@ def baseline_main_path(dev, smi: str) -> dict:
     return dict(runs=runs)
 
 
-def baseline_entry_path(dev, smi: str) -> dict:
-    """``pql_tpu_torch.train.main`` with DDPG on Cartpole @16 for
-    ``BASELINE_ENTRY_ITERS[0]`` iterations, with evals, full checkpoints and
-    a best model in ``SMOKE_DIR/baseline_entry``: the eval records at the
-    predicted iterations and the files; then ``train_baseline`` resumes from
-    the checkpoint to ``BASELINE_ENTRY_ITERS[1]`` iterations without a
-    warm-up, and ends bitwise where one uninterrupted run of as many
-    iterations ends."""
+def baseline_entry_path(dev, smi: str, argv=DDPG_CARTPOLE_ARGV, iters=BASELINE_ENTRY_ITERS) -> dict:
+    """``pql_tpu_torch.train.main`` with ``argv`` (an agent with a warm-up; by
+    default DDPG on Cartpole @16) for ``iters[0]`` iterations, with evals,
+    full checkpoints and a best model in ``SMOKE_DIR/baseline_entry``: the
+    eval records at the predicted iterations and the files; then
+    ``train_baseline`` resumes from the checkpoint to ``iters[1]``
+    iterations without a warm-up, and ends bitwise where one uninterrupted
+    run of as many iterations ends. One more save and load of the final
+    state are timed."""
     import contextlib
     import io
     import shutil
@@ -1343,10 +1396,10 @@ def baseline_entry_path(dev, smi: str) -> dict:
 
     root = os.path.join(SMOKE_DIR, "baseline_entry")
     shutil.rmtree(root, ignore_errors=True)
-    cfg = parse_cli(list(DDPG_CARTPOLE_ARGV))
+    cfg = parse_cli(list(argv))
     E, warm = cfg.num_envs, cfg.algo.warm_up
-    first, total = BASELINE_ENTRY_ITERS
-    common = list(DDPG_CARTPOLE_ARGV) + [
+    first, total = iters
+    common = list(argv) + [
         f"algo.eval_freq={BASELINE_ENTRY_EVAL_FREQ}", "algo.log_freq=4", f"checkpoint_freq={BASELINE_ENTRY_CKPT_FREQ}",
         f"logging.out_dir={root}/runs", "logging.console=false"]
     kernels.reset_launches()
@@ -1388,16 +1441,28 @@ def baseline_entry_path(dev, smi: str) -> dict:
     check(f"at env step {(warm + first) * E} (no warm-up)" in printed, f"the rerun did not resume: {printed[-200:]!r}")
     whole, _ = run("whole", "ckpt_whole")
     diffs = state_diffs(resumed, whole)
-    check(not diffs, f"the resumed baseline run differs from the uninterrupted one in {diffs[:8]}")
-    check(resumed.update_count == 8 * total, f"{resumed.update_count} updates after {total} iterations")
+    check(not diffs, f"the resumed {cfg.algo.name} run differs from the uninterrupted one in {diffs[:8]}")
+    check(resumed.update_count == cfg.algo.update_times * total,
+          f"{resumed.update_count} updates after {total} iterations")
     launches = dict(kernels.LAUNCHES)
     ckpt_bytes = os.path.getsize(ckpt_file)
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(os.path.join(root, "timed"), resumed)
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checkpoint.load_checkpoint(os.path.join(root, "timed"), whole)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
     shutil.rmtree(root, ignore_errors=True)
     return dict(
-        config=" ".join(DDPG_CARTPOLE_ARGV), card=smi, iterations_first=first, iterations_resumed=total,
+        config=" ".join(argv) + f" (memory_size {cfg.algo.memory_size:g}: replay ring "
+                                f"{list(resumed.replay.data.shape)})", card=smi, iterations_first=first,
+        iterations_resumed=total,
         eval_iterations=eval_its, eval_returns=[r["eval/return"] for r in evals], bitwise_equal_after_resume=True,
-        checkpoint_bytes=ckpt_bytes, wall_s_first=wall_first, wall_s_resumed=wall_resumed,
-        ms_per_iter_by_interval=ms, ms_per_iter_median=statistics.median(ms.values()), launches=launches,
+        checkpoint_bytes=ckpt_bytes, checkpoint_save_s=save_s, checkpoint_load_s=load_s, wall_s_first=wall_first,
+        wall_s_resumed=wall_resumed, ms_per_iter_by_interval=ms, ms_per_iter_median=statistics.median(ms.values()),
+        launches=launches,
     )
 
 
@@ -1450,47 +1515,77 @@ def ippo_learning_gate(dev) -> dict:
                 launches=dict(kernels.LAUNCHES))
 
 
-def ppo_reference(dev) -> dict:
-    """Two iterations of PPO (value_norm), IPPO (two pairs, and one pair
-    under same_policy on the Sym task) and MAPPO at a small size on the card
-    and on the CPU, from the same initial state (drawn on the CPU from the
-    seed) with the same draws: each network's parameter step within 1% of
-    its norm, losses within 1e-3 (relative; absolute below 1)."""
+def card_vs_cpu(dev, refs) -> dict:
+    """For each (algo, config overrides) of ``refs``: the warm-up of an agent
+    that has one, then two iterations, at a small size on the card and on
+    the CPU, from the same initial state (drawn on the CPU from the seed)
+    with the same draws: each network's parameter step within 1% of its
+    norm, losses within 1e-3 (relative; absolute below 1), a replay ring
+    within 1e-4. A dict of networks (a two-agent agent's) is held network
+    by network, IDDPG's targets included."""
     import torch
     from pql_tpu_torch.algos import get_algo
     from pql_tpu_torch.cfg import make_config
 
     out = {}
-    for algo, extra in PPO_REF:
-        cfg = make_config(algo, **PPO_REF_SIZE, **extra)
+    for algo, kwargs in refs:
+        cfg = make_config(algo, **kwargs)
         agents = {d: get_algo(cfg.algo.name)(cfg, device=d) for d in ("cpu", dev)}
         states = {d: a.init() for d, a in agents.items()}
 
-        def parts(st):  # each network's parameters, flat; a dict of networks (IPPO's) holds them all
+        def parts(st):  # each network's parameters, flat; a dict of networks holds them all
             actor, critic = agents["cpu"].snapshot_parts(st)
             mods = actor if isinstance(actor, torch.nn.ModuleDict) else {"actor": actor, "critic": critic}
             return {g: torch.cat([p.detach().float().cpu().flatten() for p in m.parameters()]) for g, m in mods.items()}
 
         theta0 = parts(states["cpu"])
         gen = torch.Generator().manual_seed(1)
+        if hasattr(agents["cpu"], "warmup"):
+            draws = agents["cpu"].draw_iteration(gen, random=True)
+            for d, agent in agents.items():
+                states[d], _ = agent.warmup(states[d], {k: v.to(d) for k, v in draws.items()})
         losses = {d: [] for d in agents}
         for _ in range(2):
             draws = agents["cpu"].draw_iteration(gen)
             for d, agent in agents.items():
                 states[d], m = agent.train_iter(states[d], {k: v.to(d) for k, v in draws.items()})
-                losses[d] += [float(v) for k, v in sorted(m.items()) if k.endswith(("_loss", "_loss_left"))]
+                losses[d] += [float(v) for k, v in sorted(m.items()) if "_loss" in k]
         got, want = parts(states[dev]), parts(states["cpu"])
         rel = {g: float((got[g] - want[g]).norm() / (want[g] - theta0[g]).norm()) for g in want}
         loss_err = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(losses[dev], losses["cpu"]))
         obs_err = float((states[dev].obs.cpu() - states["cpu"].obs).abs().max())
-        label = f"{algo} {extra}"
+        label = f"{algo} {kwargs}"
         for g, r in rel.items():
             check(r <= 1e-2, f"{label}: card vs CPU {g} step differs by {r:.3g} of its norm")
         check(loss_err <= 1e-3, f"{label}: card vs CPU loss differs by {loss_err:.3g}")
         check(states[dev].update_count == states["cpu"].update_count > 0, f"{label} counters")
-        out[f"{algo} {extra['task']}" + (" same_policy" if "algo__same_policy" in extra else "")] = dict(
-            step_rel_err=rel, loss_rel_err=loss_err, obs_max_abs_err=obs_err, updates=states[dev].update_count)
-    return dict(config=PPO_REF_SIZE, iterations=2, runs=out)
+        run = dict(step_rel_err=rel, loss_rel_err=loss_err, obs_max_abs_err=obs_err, updates=states[dev].update_count)
+        if hasattr(states["cpu"], "replay"):
+            err = float((states[dev].replay.data.cpu() - states["cpu"].replay.data).abs().max())
+            check(err <= 1e-4, f"{label}: card vs CPU replay differs by {err:.3g}")
+            run["replay_max_abs_err"] = err
+        out[f"{algo} {kwargs['task']}" + (" same_policy" if "algo__same_policy" in kwargs else "")] = run
+    return out
+
+
+def ppo_reference(dev) -> dict:
+    """Two iterations of PPO (value_norm), IPPO (two pairs, and one pair
+    under same_policy on the Sym task) and MAPPO at a small size on the card
+    and on the CPU (``card_vs_cpu``)."""
+    runs = card_vs_cpu(dev, [(algo, dict(PPO_REF_SIZE, **extra)) for algo, extra in PPO_REF])
+    return dict(config=PPO_REF_SIZE, iterations=2, runs=runs)
+
+
+def two_agent_reference(dev) -> dict:
+    """The warm-up and two iterations of IDDPG, and two iterations of QTOTV1
+    (value_norm), QTOTV2, IART, IPPOTeam (on the Sym task) and IPPOTeam2, at
+    a small size on the card and on the CPU (``card_vs_cpu``); the kernels'
+    launch counts are reset before and read after."""
+    from pql_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    runs = card_vs_cpu(dev, TWO_AGENT_REF)
+    return dict(config=dict(TWO_AGENT_REF), iterations=2, runs=runs, launches=dict(kernels.LAUNCHES))
 
 
 def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters: int, profiled_iters: int) -> dict:
@@ -1633,10 +1728,37 @@ def two_agent_main_path(dev, smi: str) -> dict:
     BimanualReacherSym @4096 (the presets: horizon 16, batch 32768, 4
     epochs); the Sym task's mirrored share within ``SYM_TRACKER_BAND``."""
     out = onpolicy_paths(dev, smi, TWO_AGENT_PATHS)
-    for name, r in out["runs"].items():
+    _check_sym_share(out["runs"])
+    return out
+
+
+def _check_sym_share(runs: dict) -> None:
+    """The mirrored share of each Sym-task run within ``SYM_TRACKER_BAND``."""
+    lo, hi = SYM_TRACKER_BAND
+    for name, r in runs.items():
         if "Sym" in name:
-            lo, hi = SYM_TRACKER_BAND
             check(lo <= r["symmetry_tracker_mean"] <= hi, f"{name}: mirrored share {r['symmetry_tracker_mean']}")
+
+
+def iddpg_main_path(dev, smi: str) -> dict:
+    """IDDPG on BimanualReacher @4096 at its preset (batch 8192, memory 5e6:
+    ring 1220 x 4096 x 55 fp32, 8 updates of both hands per iteration):
+    warm-up and 56 iterations, as ``baseline_run``, with the replay's two
+    reward channels (columns 28-29) checked distinct; no ``c51_td_target``
+    launch."""
+    r = baseline_run(dev, smi, IDDPG_ARGV, *IDDPG_DEPTH)
+    check(r["launches"]["c51_td_target"] == 0, "the IDDPG path launched c51_td_target")
+    check(r["replay_reward_columns"] == [28, 29], f"IDDPG reward columns {r['replay_reward_columns']}")
+    return r
+
+
+def team_main_path(dev, smi: str) -> dict:
+    """QTOTV1, QTOTV2, IART, IPPOTeam and IPPOTeam2 on BimanualReacher @4096
+    and IPPOTeam on BimanualReacherSym @4096 at their presets (horizon 16,
+    batch 32768, 4 epochs: QTOT 2 minibatches of the H·E rows, the team
+    agents 1 of the H·E/2), as ``two_agent_main_path``."""
+    out = onpolicy_paths(dev, smi, TEAM_PATHS)
+    _check_sym_share(out["runs"])
     return out
 
 
@@ -1746,8 +1868,12 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="device", kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda))
     if argv == ["--entry"]:
+        from pql_tpu_torch.algos import get_algo
+        from pql_tpu_torch.cfg import parse_cli
+
         for run_argv, iters in ENTRY_RUNS:
-            r, s = timed(ppo_entry_path, dev, smi, run_argv, iters)
+            warms = hasattr(get_algo(parse_cli(list(run_argv)).algo.name), "warmup")
+            r, s = timed(baseline_entry_path if warms else ppo_entry_path, dev, smi, run_argv, iters)
             emit(dict(phase="entry_run", wall_s=s, **r))
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
@@ -1806,6 +1932,14 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="ppo_entry_path", wall_s=s, **pentry))
     igate, s = timed(ippo_learning_gate, dev)
     emit(dict(phase="ippo_learning_gate", card=smi, wall_s=s, **igate))
+    tref, s = timed(two_agent_reference, dev)
+    emit(dict(phase="two_agent_reference", wall_s=s, **tref))
+    imain, s = timed(iddpg_main_path, dev, smi)
+    emit(dict(phase="iddpg_main_path", wall_s=s, **imain))
+    tmain, s = timed(team_main_path, dev, smi)
+    emit(dict(phase="team_main_path", wall_s=s, **tmain))
+    ientry, s = timed(baseline_entry_path, dev, smi, IDDPG_ENTRY_ARGV, IDDPG_ENTRY_ITERS)
+    emit(dict(phase="iddpg_entry_path", wall_s=s, **ientry))
 
     by_path = {"pql_d Cartpole@4096": main["launches"], "pql_d AllegroHand@16384": allegro_d["launches"],
                "pql_d Cartpole@4096 entry point": entry["launches"],
@@ -1816,7 +1950,11 @@ def main(argv: list[str]) -> int:
                "ddpg Cartpole@64 learning runs": bgate["launches"],
                **{f"{name} (on-policy)": r["launches"] for name, r in {**pmain["runs"], **pairs["runs"]}.items()},
                "algo=ppo Cartpole@4096 entry point": pentry["launches"],
-               "ippo BimanualReacher@1024 learning run": igate["launches"]}
+               "ippo BimanualReacher@1024 learning run": igate["launches"],
+               "two-agent card-vs-CPU reference runs": tref["launches"],
+               "algo=iddpg BimanualReacher@4096": imain["launches"],
+               **{f"{name} (team)": r["launches"] for name, r in tmain["runs"].items()},
+               "algo=iddpg BimanualReacher@4096 entry point": ientry["launches"]}
     emit({"kernels": [
         dict(name=c["name"], route="cuda", source=kernels.KERNELS[c["name"]]["source"],
              replaces=kernels.KERNELS[c["name"]]["replaces"],

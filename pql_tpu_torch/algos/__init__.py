@@ -1,17 +1,23 @@
 """Algorithms of the port on one device, by ``algo.name`` (port of
-pql_tpu/algos/__init__.py:20-56): PQL / PQL-D, the off-policy baselines
-DDPG, SAC and CrossQ, and the on-policy PPO with its two-agent IPPO and
-MAPPO."""
+pql_tpu/algos/__init__.py:20-56): PQL / PQL-D; the off-policy baselines
+DDPG, SAC and CrossQ and the two-hand IDDPG; the on-policy PPO, its
+two-agent IPPO and MAPPO, QTOTV1 and QTOTV2, and the split-population team
+agents IART, IPPOTeam and IPPOTeam2. Any other name is not ported yet."""
 
 from pql_tpu_torch.algos.crossq import CrossQ
 from pql_tpu_torch.algos.ddpg import DDPG, OffPolicyState
+from pql_tpu_torch.algos.iddpg import IDDPG, IDDPGState
 from pql_tpu_torch.algos.ippo import IPPO, IPPOState
 from pql_tpu_torch.algos.mappo import MAPPO
 from pql_tpu_torch.algos.ppo import PPO, PPOState
 from pql_tpu_torch.algos.pql import PQL, PQLState
+from pql_tpu_torch.algos.qtot import QTOTV1, QTOTV2
 from pql_tpu_torch.algos.sac import SAC, SACState
+from pql_tpu_torch.algos.teams import IART, IPPOTeam, IPPOTeam2
 
-ALGO_REGISTRY = {"PQL": PQL, "DDPG": DDPG, "SAC": SAC, "CrossQ": CrossQ, "PPO": PPO, "IPPO": IPPO, "MAPPO": MAPPO}
+ALGO_REGISTRY = {"PQL": PQL, "DDPG": DDPG, "SAC": SAC, "CrossQ": CrossQ, "IDDPG": IDDPG, "PPO": PPO, "IPPO": IPPO,
+                 "MAPPO": MAPPO, "QTOTV1": QTOTV1, "QTOTV2": QTOTV2, "IART": IART, "IPPOTeam": IPPOTeam,
+                 "IPPOTeam2": IPPOTeam2}
 
 
 def get_algo(name: str):
@@ -21,4 +27,5 @@ def get_algo(name: str):
 
 
 __all__ = ["ALGO_REGISTRY", "get_algo", "PQL", "PQLState", "DDPG", "OffPolicyState", "SAC", "SACState", "CrossQ",
-           "PPO", "PPOState", "IPPO", "IPPOState", "MAPPO"]
+           "IDDPG", "IDDPGState", "PPO", "PPOState", "IPPO", "IPPOState", "MAPPO", "QTOTV1", "QTOTV2", "IART",
+           "IPPOTeam", "IPPOTeam2"]

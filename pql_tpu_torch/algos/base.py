@@ -143,11 +143,19 @@ def draw_rollout(gen: torch.Generator, task, horizon: int, num_envs: int, act_di
     return d
 
 
+def env_rewards(env_state, reward: torch.Tensor, info: dict):
+    """A step's reward for the episode statistics and its stored [E, C]
+    reward channels (before reward_scale): the env's reward, one channel."""
+    return reward, reward[:, None]
+
+
 @torch.no_grad()
-def rollout(env: VecEnv, cfg, state, action_fn, draws: dict, horizon: int) -> dict[str, list[torch.Tensor]]:
+def rollout(env: VecEnv, cfg, state, action_fn, draws: dict, horizon: int,
+            rewards=env_rewards) -> dict[str, list[torch.Tensor]]:
     """``horizon`` lockstep steps (pql_tpu/algos/base.py:147-215): update the
     obs-rms, then normalize; ``action_fn(obs_n, t)``; ``VecEnv.step`` with
-    step t's reset (and per-step) draws; episode statistics. Moves
+    step t's reset (and per-step) draws; ``rewards(env state before the step,
+    reward, info)`` (``env_rewards`` by default); episode statistics. Moves
     ``state.env_state``, ``obs``, ``obs_rms`` and ``stats`` in place and
     returns the trajectory, rewards scaled by reward_scale and dones through
     handle_timeout, ready for n-step staging."""
@@ -160,14 +168,16 @@ def rollout(env: VecEnv, cfg, state, action_fn, draws: dict, horizon: int) -> di
         else:
             obs_n = obs
         action = action_fn(obs_n, t)
+        before = state.env_state
         state.env_state, next_obs, reward, done, info = env.step(
             state.env_state, action, draws["reset"][t], draws["step"][t] if "step" in draws else None
         )
-        state.stats.update(reward, done, info)
+        episode_reward, stored = rewards(before, reward, info)
+        state.stats.update(episode_reward, done, info)
         done_b = handle_timeout(done, info) if cfg.algo.handle_timeout else done
         traj["obs"].append(obs)
         traj["action"].append(action)
-        traj["reward"].append((cfg.algo.reward_scale * reward)[:, None])
+        traj["reward"].append(cfg.algo.reward_scale * stored)
         traj["next_obs"].append(next_obs)
         traj["done"].append(done_b[:, None])
         obs = next_obs

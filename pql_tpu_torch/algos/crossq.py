@@ -46,4 +46,4 @@ class CrossQ(DDPG):
         # train-mode statistics of this pass are not committed
         q1, q2 = state.critic(obs_n, state.actor(obs_n), train=True)
         actor_loss = self._actor_step(state, -torch.mean(torch.minimum(q1, q2)))
-        return critic_loss, actor_loss
+        return {"critic": critic_loss, "actor": actor_loss}

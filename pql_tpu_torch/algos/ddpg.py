@@ -35,7 +35,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from pql_tpu_torch.algos import base
+from pql_tpu_torch.algos import base, ma_base
 from pql_tpu_torch.envs import make_env
 from pql_tpu_torch.envs.base import VecEnvState
 from pql_tpu_torch.ops.running_norm import RunningMeanStd
@@ -84,6 +84,7 @@ class DDPG(base.ActorCriticAgent):
         self.num_envs = cfg.num_envs
         self.obs_dim = self.env.obs_dim
         self.action_dim = self.env.action_dim
+        self.policy_dim = self.action_dim  # the action width of one policy: the update's normals
         self.update_times = int(cfg.algo.update_times)
 
     # ---------------------------------------------------------------- init
@@ -128,16 +129,16 @@ class DDPG(base.ActorCriticAgent):
           the per-step draws of a task with ``draw_step``;
         - ``sample_slot`` / ``sample_env`` [U, B]: raw slot draws on [0, 2^30)
           and env indices of the ``update_times`` batches;
-        - the update's normals, [U, B, A] each (``_update_normals``).
+        - the update's normals, [U, B, policy_dim] each (``_update_normals``).
         """
-        cfg, E, A = self.cfg, self.num_envs, self.action_dim
+        cfg, E = self.cfg, self.num_envs
         horizon = cfg.algo.warm_up if random else cfg.algo.horizon_len
-        d = base.draw_rollout(gen, self.env.task, horizon, E, A, random)
+        d = base.draw_rollout(gen, self.env.task, horizon, E, self.action_dim, random)
         if not random:
             U, B = self.update_times, cfg.algo.batch_size
             d["sample_slot"], d["sample_env"] = draw_sample_indices(gen, U, B, E)
             for name in self._update_normals:
-                d[name] = torch.randn(U, B, A, generator=gen, device=gen.device)
+                d[name] = torch.randn(U, B, self.policy_dim, generator=gen, device=gen.device)
         return {k: v.to(self.device) for k, v in d.items()}
 
     _update_normals = ("target_normal",)  # target-policy smoothing
@@ -168,7 +169,7 @@ class DDPG(base.ActorCriticAgent):
                 return draws["action_uniform"][t]
             return self._explore_action(state, obs_n, draws["explore_normal"][t], step)
 
-        traj = base.rollout(self.env, cfg, state, action_fn, draws, horizon)
+        traj = base.rollout(self.env, cfg, state, action_fn, draws, horizon, self._rewards)
         state.nstep, emitted, _valid = nstep_scan(state.nstep, traj)
         state.replay.add(emitted)  # the valid_start watermark excludes the FIFO's fill
         state.env_steps += horizon * self.num_envs
@@ -177,29 +178,27 @@ class DDPG(base.ActorCriticAgent):
     def _explore_action(self, state: OffPolicyState, obs_n, normal, step: int):
         return base.exploration_action(self.cfg, state.actor, obs_n, normal, step)
 
+    _rewards = staticmethod(base.env_rewards)  # the rollout's reward channels
+
     # --------------------------------------------------------------- update
 
     def update(self, state: OffPolicyState, draws: dict):
         """``update_times`` updates on the batches of ``draws``; returns the
-        state and the metrics (mean losses, the episode statistics)."""
+        state and the metrics (the mean of each network's loss, the episode
+        statistics); ``_one_update`` gives the losses by network name."""
         cfg = self.cfg
         if draws["sample_slot"].shape[0] != self.update_times:
             raise ValueError(f"{draws['sample_slot'].shape[0]} batches drawn for {self.update_times} updates")
-        c_losses, a_losses = [], []
+        losses: dict[str, list] = {}
         for u in range(self.update_times):
             batch = state.replay.sample(draws["sample_slot"][u], draws["sample_env"][u])
             if cfg.algo.obs_norm:
                 batch["obs"] = state.obs_rms.normalize(batch["obs"])
                 batch["next_obs"] = state.obs_rms.normalize(batch["next_obs"])
-            c, a = self._one_update(state, batch, {k: draws[k][u] for k in self._update_normals})
-            c_losses.append(c)
-            a_losses.append(a)
+            for k, v in self._one_update(state, batch, {k: draws[k][u] for k in self._update_normals}).items():
+                losses.setdefault(k, []).append(v)
             state.update_count += 1
-        return state, {
-            "train/critic_loss": torch.stack(c_losses).mean(),
-            "train/actor_loss": torch.stack(a_losses).mean(),
-            **state.stats.metrics(),
-        }
+        return state, {**ma_base.loss_metrics(losses), **state.stats.metrics()}
 
     def _td_target(self, batch: dict, q_next: torch.Tensor) -> torch.Tensor:
         gamma_n = self.cfg.algo.gamma ** self.cfg.algo.nstep
@@ -226,7 +225,7 @@ class DDPG(base.ActorCriticAgent):
         soft_update(state.critic_target, state.critic, cfg.algo.tau)
         if state.actor_target is not None:
             soft_update(state.actor_target, state.actor, cfg.algo.tau)
-        return critic_loss, actor_loss
+        return {"critic": critic_loss, "actor": actor_loss}
 
     # ------------------------------------------------------------ eval hook
 

@@ -42,9 +42,10 @@ class IPPOState:
     gen: torch.Generator
     env_steps: int
     update_count: int
+    value_rms_tot: RunningMeanStd | None = None  # QTOT's total-critic stream (algos/qtot.py)
 
 
-class IPPO(PPO):
+class IPPO(ma_base.NetsDictAgent, PPO):
     name = "IPPO"
 
     def __init__(self, cfg, device: str | torch.device = "cuda"):
@@ -100,7 +101,12 @@ class IPPO(PPO):
         state.stats.update(rew_r + rew_l, done, info)
         scale = self.cfg.algo.reward_scale
         record.update(rew_r=scale * rew_r, rew_l=scale * rew_l, dones=state.dones,
-                      truncated=info["truncated"].float())
+                      truncated=info["truncated"].float(), **self._extra_rewards(rew_r, rew_l))
+
+    def _extra_rewards(self, rew_r: torch.Tensor, rew_l: torch.Tensor) -> dict:
+        """Further reward streams of the step from the hands' unscaled
+        rewards (QTOT's total)."""
+        return {}
 
     # ------------------------------------------------------------ advantage
 
@@ -143,15 +149,3 @@ class IPPO(PPO):
         """Each hand's policy mean on its view, merged without mirroring."""
         ob_r, ob_l = self.ma.split_obs(obs_n, None)
         return self.ma.merge_actions(nets["actor"](ob_r)[0], nets[self._left("actor")](ob_l)[0], None)
-
-    @staticmethod
-    def eval_params(state) -> nn.ModuleDict:
-        """All the networks: the eval hook picks the actors
-        (pql_tpu/algos/ippo.py:331-333)."""
-        return state.nets
-
-    @staticmethod
-    def snapshot_parts(state) -> tuple[nn.ModuleDict, nn.ModuleDict]:
-        """The snapshot's actor is all the networks, its critic the critics
-        (scripts/train.py:248-258)."""
-        return state.nets, nn.ModuleDict({k: m for k, m in state.nets.items() if k.startswith("critic")})

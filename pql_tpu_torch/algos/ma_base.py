@@ -4,6 +4,8 @@ pql_tpu/algos/ma_base.py:30-191).
 - ``MultiAgentCtx``: a task's ``MultiAgentSpec`` bound to a
   ``SymmetryManager``, with the per-hand model builders and the C2 rep
   generators of the task's ``EquivarianceSpec``;
+- ``NetsDictAgent``: what the loop takes from a state whose networks sit in
+  one ``nn.ModuleDict`` (IPPO, QTOT, IDDPG, the team agents);
 - ``gae``: GAE with the timeout XOR mask, or plain discounted returns;
 - ``normalize_advantages``, ``ppo_actor_loss``, ``ppo_value_loss``: the
   per-minibatch whitening (population std) and the clipped losses;
@@ -19,6 +21,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from pql_tpu_torch.algos.base import compute_dtype
 from pql_tpu_torch.envs.base import VecEnv
@@ -50,6 +53,22 @@ def concat_reps(*gens: tuple) -> tuple:
         out[o : o + m.shape[0], o : o + m.shape[0]] = m
         o += m.shape[0]
     return tuple(map(tuple, out))
+
+
+class NetsDictAgent:
+    """The eval hook and the best-model snapshot of a state that keeps its
+    networks in one ``nn.ModuleDict`` ``nets``, as the JAX package's params
+    dict: the eval hook takes all of them and picks the actors; the
+    snapshot's actor is all of them, its critic the critics (and IDDPG's
+    targets; scripts/train.py:248-258). Listed before the agent's base class."""
+
+    @staticmethod
+    def eval_params(state) -> nn.ModuleDict:
+        return state.nets
+
+    @staticmethod
+    def snapshot_parts(state) -> tuple[nn.ModuleDict, nn.ModuleDict]:
+        return state.nets, nn.ModuleDict({k: m for k, m in state.nets.items() if k.startswith("critic")})
 
 
 class MultiAgentCtx:

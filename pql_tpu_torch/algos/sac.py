@@ -69,7 +69,7 @@ class SAC(DDPG):
             alpha_loss = torch.mean(torch.exp(state.log_alpha[0]) * (-logp.detach() - self.target_entropy))
             base.descend(state.alpha_opt, [state.log_alpha], alpha_loss, None)
         soft_update(state.critic_target, state.critic, cfg.algo.tau)
-        return critic_loss, actor_loss
+        return {"critic": critic_loss, "actor": actor_loss}
 
     @staticmethod
     def eval_actor_apply(actor: nn.Module, obs_n: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,15 @@
 """Dataclass configuration tree for the PyTorch port.
 
-A copy of the PQL, off-policy baseline and on-policy (PPO, IPPO, MAPPO)
-parts of ``pql_tpu.cfg.config``, kept here so the port imports nothing of
+A copy of the PQL, off-policy baseline (DDPG, SAC, CrossQ, IDDPG) and
+on-policy (PPO, IPPO, MAPPO, QTOTV1/V2, IART, IPPOTeam/IPPOTeam2) parts of
+``pql_tpu.cfg.config``, kept here so the port imports nothing of
 the JAX package. The CLI grammar is the same:
 
     python -m pql_tpu_torch.train algo=pql_d task=Cartpole num_envs=4096 algo.batch_size=8192
     python -m pql_tpu_torch.train algo=ddpg task=Cartpole num_envs=16 algo.batch_size=1024
     python -m pql_tpu_torch.train algo=ppo task=Ant task_param=true
 
-Only the fields the port's PQL, DDPG, SAC, CrossQ, PPO, IPPO and MAPPO paths read are kept,
+Only the fields the port's agents read are kept,
 so an override of a knob the port does not implement fails with "No config
 field" instead of being ignored. The device is an argument of the entry points, not a
 config field.
@@ -114,7 +115,8 @@ class AlgoConfig:
     prefetch_batches: bool = False
 
 
-# ppo_algo.yaml; the two-agent agents reuse it with the agent swapped
+# ppo_algo.yaml; the two-agent agents reuse it with the agent swapped (the
+# JAX package's _ppo_like for QTOT and the team agents)
 _ON_POLICY = dict(horizon_len=16, batch_size=32768, act_class="DiagGaussianMLPPolicy", cri_class="MLPCritic",
                   eval_freq=20, update_times=4)
 
@@ -129,6 +131,12 @@ def _algo_presets() -> dict[str, dict[str, Any]]:
         "ppo": dict(_ON_POLICY, name="PPO"),
         "ippo": dict(_ON_POLICY, name="IPPO"),
         "mappo": dict(_ON_POLICY, name="MAPPO"),
+        "iddpg": dict(name="IDDPG", eval_freq=100, update_times=8),
+        "qtotv1": dict(_ON_POLICY, name="QTOTV1"),
+        "qtotv2": dict(_ON_POLICY, name="QTOTV2"),
+        "iart": dict(_ON_POLICY, name="IART"),
+        "ippoteam": dict(_ON_POLICY, name="IPPOTeam"),
+        "ippoteam2": dict(_ON_POLICY, name="IPPOTeam2"),
     }
 
 

@@ -1,8 +1,9 @@
 """On-device circular replay buffer (port of pql_tpu/replay/buffer.py).
 
-One packed tensor ``[slots, E, D]`` holds obs ∥ action ∥ reward ∥
+One packed tensor ``[slots, E, D]`` holds obs ∥ action ∥ reward[C] ∥
 next_obs ∥ done along the feature axis, described by a ``layout`` tuple of
-(name, start, dim). A batch is one row gather. The JAX package pads rows
+(name, start, dim). C is one reward channel, or IDDPG's two (channel 0 the
+right hand's, 1 the left's, buffer.py:79-125). A batch is one row gather. The JAX package pads rows
 narrower than 64 columns for the TPU's lanes; the port does not, so rows
 are exactly D wide and parity is checked on field views.
 
@@ -32,8 +33,8 @@ def replay_slots(memory_size: int, num_envs: int, write_len: int = 1) -> int:
 
 class ReplayBuffer:
     def __init__(self, slots, num_envs, obs_dim, action_dim, dtype=torch.float32,
-                 valid_start=0, device="cuda"):
-        dims = [("obs", obs_dim), ("action", action_dim), ("reward", 1),
+                 valid_start=0, device="cuda", reward_dim=1):
+        dims = [("obs", obs_dim), ("action", action_dim), ("reward", reward_dim),
                 ("next_obs", obs_dim), ("done", 1)]
         layout, start = [], 0
         for name, dim in dims:

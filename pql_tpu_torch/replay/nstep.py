@@ -21,7 +21,7 @@ FIELDS = ("obs", "action", "reward", "next_obs", "done")
 class NStepState:
     obs: torch.Tensor  # [n, E, obs_dim]
     action: torch.Tensor  # [n, E, act_dim]
-    reward: torch.Tensor  # [n, E, 1]
+    reward: torch.Tensor  # [n, E, C]: C reward channels (IDDPG's two hands), one by default
     next_obs: torch.Tensor  # [n, E, obs_dim]
     done: torch.Tensor  # [n, E, 1]
     count: int  # total pushes so far
@@ -29,10 +29,12 @@ class NStepState:
     gamma: float
 
 
-def create_nstep(num_envs, obs_dim, action_dim, nstep=3, gamma=0.99, device="cuda") -> NStepState:
+def create_nstep(num_envs, obs_dim, action_dim, nstep=3, gamma=0.99, device="cuda", reward_dim=1) -> NStepState:
+    """``reward_dim`` channels are discounted alike, each on its own; the
+    done flag stays one column (nstep.py:41-60)."""
     z = lambda d: torch.zeros(nstep, num_envs, d, dtype=torch.float32, device=device)  # noqa: E731
     return NStepState(
-        obs=z(obs_dim), action=z(action_dim), reward=z(1), next_obs=z(obs_dim), done=z(1),
+        obs=z(obs_dim), action=z(action_dim), reward=z(reward_dim), next_obs=z(obs_dim), done=z(1),
         count=0, nstep=nstep, gamma=gamma,
     )
 
@@ -49,7 +51,7 @@ def nstep_return(state: NStepState):
     gammas = torch.pow(
         state.gamma, torch.arange(n, dtype=state.reward.dtype, device=k.device)
     )[:, None, None]
-    reward = torch.sum(state.reward * gammas * mask, dim=0)
+    reward = torch.sum(state.reward * gammas * mask, dim=0)  # [E, C]
     idx = k[None, :, None].expand(1, -1, state.next_obs.shape[-1])
     next_obs = torch.gather(state.next_obs, 0, idx)[0]
     done = torch.maximum(state.done[-1], any_done[:, None].to(state.done.dtype))

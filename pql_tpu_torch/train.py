@@ -13,6 +13,9 @@ and ``train_baseline``, :260-314, chosen by ``algo.name`` as at :328-331).
     python -m pql_tpu_torch.train algo=sac task=Ant num_envs=4096 max_time=600   # or algo=crossq
     python -m pql_tpu_torch.train algo=ppo task=Ant task_param=true max_time=600
     python -m pql_tpu_torch.train algo=ippo task=BimanualReacher num_envs=4096 max_time=600   # or algo=mappo
+    python -m pql_tpu_torch.train algo=iddpg task=BimanualReacher num_envs=4096 max_time=600
+    python -m pql_tpu_torch.train algo=iart task=BimanualReacher num_envs=4096 max_time=600
+        # or algo=qtotv1, qtotv2, ippoteam, ippoteam2
 
 A PQL run, as the JAX package's:
 
@@ -35,14 +38,15 @@ A PQL run, as the JAX package's:
 - with ``profile_dir``, a ``torch.profiler`` Chrome trace of
   ``profile_iters`` iterations from iteration 2 on.
 
-A DDPG, SAC, CrossQ, PPO, IPPO or MAPPO run (``train_baseline``), as the
-JAX package's: the same start (artifact, full-state resume, else the
-warm-up of an agent that has one; the on-policy agents have none), then one
+A DDPG, SAC, CrossQ, IDDPG, PPO, IPPO, MAPPO, QTOTV1, QTOTV2, IART,
+IPPOTeam or IPPOTeam2 run (``train_baseline``), as the JAX package's: the
+same start (artifact, full-state resume, else the warm-up of an agent that
+has one: the off-policy agents; the on-policy agents have none), then one
 ``train_iter`` per iteration until the stop check; every ``algo.log_freq``
 iterations a metrics record with the measured ``speed/env_steps_per_s``;
 every ``algo.eval_freq`` iterations an eval run at once on the live actor
-(IPPO's: all its networks) and normalizer, a new best ``eval/return`` saving
-them and the critics to ``run_dir/best_model``; the periodic full checkpoint
+(a two-agent agent's: all its networks) and normalizer, a new best
+``eval/return`` saving them and the critics to ``run_dir/best_model``; the periodic full checkpoint
 as above. ``env_steps`` counts total env steps.
 
 Records go to ``logging.out_dir/run_name/metrics.jsonl`` and the console
@@ -253,8 +257,8 @@ def _start(cfg, agent, state, dev):
 
 
 def train_baseline(cfg, logger: RunLogger, device: str | torch.device = "cuda"):
-    """The synchronous DDPG / SAC / CrossQ / PPO / IPPO / MAPPO loop
-    (scripts/train.py:260-314); returns the agent and its final state."""
+    """The synchronous loop of every agent but PQL (scripts/train.py:260-314);
+    returns the agent and its final state."""
     agent = get_algo(cfg.algo.name)(cfg, device)
     dev = agent.device
     has_warmup = hasattr(agent, "warmup")

@@ -5,11 +5,12 @@ package writes orbax directories; the formats differ):
 
 - the **full state** (``save_checkpoint`` / ``load_checkpoint``,
   ``<dir>/state.pt``) of a ``PQLState``, of a baseline's ``OffPolicyState``
-  / ``SACState`` or of an on-policy ``PPOState`` (PPO, MAPPO) /
-  ``IPPOState``: the actor, critic and target weights (the actor target
-  where the state has one; a CrossQ critic's BatchNorm statistics are its
-  buffers; IPPO's ``nets``) and the optimizers' ``state_dict``s (IPPO's
-  ``opts``), SAC's ``log_alpha`` and its optimizer, the obs normalizer and
+  / ``SACState`` / ``IDDPGState`` or of an on-policy ``PPOState`` (PPO,
+  MAPPO) / ``IPPOState`` (IPPO, QTOT, the team agents): the actor, critic
+  and target weights (the actor target where the state has one; a CrossQ
+  critic's BatchNorm statistics are its buffers; a two-agent state's
+  ``nets``, IDDPG's targets among them) and the optimizers' ``state_dict``s
+  (a two-agent state's ``opts``), SAC's ``log_alpha`` and its optimizer, the obs normalizer and
   the value normalizers, the env state, obs and (on-policy) the dones, the
   n-step FIFO and the replay ring with its pointer and write count
   (off-policy), the episode accumulators and trackers (PQL's three, or an
@@ -38,7 +39,7 @@ STATE_FILE = "state.pt"
 SNAPSHOT_FILE = "snapshot.pt"
 _MODULES = ("actor", "critic", "actor_target", "critic_target", "nets")  # a state may hold None for a target
 _OPTIMIZERS = ("actor_opt", "critic_opt", "alpha_opt", "opts")  # opts: a dict of optimizers
-_NORMS = ("obs_rms", "value_rms", "value_rms_left")
+_NORMS = ("obs_rms", "value_rms", "value_rms_left", "value_rms_tot")
 _TRACKERS = ("return_tracker", "len_tracker", "success_tracker")  # PQL's
 _NSTEP = ("obs", "action", "reward", "next_obs", "done")
 _COUNTERS = ("env_steps", "critic_update_count", "actor_update_count", "update_count")
@@ -82,7 +83,7 @@ def _load_sd(x, sd: dict) -> None:
 
 def state_dict(state) -> dict:
     """Everything of a ``PQLState``, ``OffPolicyState``, ``SACState``,
-    ``PPOState`` or ``IPPOState`` as tensors, numbers and dicts (the live
+    ``IDDPGState``, ``PPOState`` or ``IPPOState`` as tensors, numbers and dicts (the live
     tensors, not copies)."""
     sd = {n: _sd(getattr(state, n)) for n in _present(state, _MODULES + _OPTIMIZERS)}
     sd.update({n: _rms(getattr(state, n)) for n in _present(state, _NORMS)})

@@ -1,4 +1,5 @@
-"""Carry weights and PQL, DDPG, SAC, CrossQ, PPO, IPPO and MAPPO states from the JAX package into the port.
+"""Carry weights and PQL, DDPG, SAC, CrossQ, IDDPG, PPO, IPPO, MAPPO, QTOT and
+team-agent states from the JAX package into the port.
 
 Inputs are plain nested dicts of numpy arrays (no JAX object crosses), so
 this module imports nothing of JAX:
@@ -35,18 +36,25 @@ this module imports nothing of JAX:
   (a tracker ``{'ring', 'ptr', 'count'}``); ``env_steps``, ``update_count``;
   SAC's ``log_alpha`` and ``alpha_opt`` ``{'mu', 'nu', 'count'}`` (arrays
   of shape [1]); CrossQ's ``batch_stats``.
+- ``iddpg_state_from_jax(tree, layout)`` / ``load_iddpg_state`` do the same
+  for an IDDPG state: ``params`` and ``opts`` by network name (the six
+  networks, the four trained ones' Adam states), and the rest as the
+  baselines' (its n-step FIFO and replay carry two reward channels).
 - ``ppo_state_from_jax(tree)`` / ``load_ppo_state`` do the same for a PPO
   or MAPPO state: ``actor_params``, ``critic_params``, ``actor_opt``,
   ``critic_opt``, ``obs_rms``, ``value_rms``, ``env_state``, ``obs``,
   ``dones``, ``stats`` (as above), ``env_steps``, ``update_count``.
   ``ma_state_from_jax(tree)`` converts an IPPO state, whose ``params`` and
   ``opts`` are dicts by network name (``actor``, ``critic``[,
-  ``actor_left``, ``critic_left``]) and which has ``value_rms_left`` too
-  (a tree without ``params`` goes to ``ppo_state_from_jax``);
-  ``load_ppo_state`` writes either into the port's state.
+  ``actor_left``, ``critic_left``]; QTOT's ``critic_tot``; the team
+  agents' networks) and which has ``value_rms_left`` too, and QTOT's
+  ``value_rms_tot`` (a tree without ``params`` goes to
+  ``ppo_state_from_jax``); ``load_ppo_state`` writes either into the port's
+  state.
 - ``snapshot_from_jax(tree, actor, critic)`` converts the ``{actor, critic,
   obs_rms}`` payload of the JAX ``save_model_snapshot`` (read from its orbax
-  directory on the JAX side, as numpy) into the port's weights-only
+  directory on the JAX side, as numpy; a two-agent agent's actor and critic
+  are dicts of flax trees by network name) into the port's weights-only
   snapshot. ``torch.save`` of the result to ``<dir>/snapshot.pt`` makes a
   directory the port's ``artifact=`` starts from, so a policy trained by
   the JAX package continues in the port.
@@ -259,6 +267,20 @@ def offpolicy_state_from_jax(tree: dict, layout) -> dict:
     return out
 
 
+def iddpg_state_from_jax(tree: dict, layout) -> dict:
+    """A whole JAX IDDPG state (as numpy, see the module doc) → port tensors."""
+    return dict(
+        **_nets_from_jax(tree),
+        **_env_parts_from_jax(tree, layout),
+        stats=_stats_from_jax(tree["stats"]),
+        counters={k: int(tree[k]) for k in ("env_steps", "update_count")},
+    )
+
+
+def _nets_from_jax(tree: dict) -> dict:
+    return dict(nets=params_from_jax(tree["params"]), opts={name: _opt_from_jax(o) for name, o in tree["opts"].items()})
+
+
 def ppo_state_from_jax(tree: dict) -> dict:
     """A whole JAX PPO or MAPPO state (as numpy, see the module doc) → port tensors."""
     return dict(
@@ -274,12 +296,11 @@ def ma_state_from_jax(tree: dict) -> dict:
     """A whole JAX IPPO state (or, without ``params``, a MAPPO one) → port tensors."""
     if "params" not in tree:
         return ppo_state_from_jax(tree)
-    return dict(
-        nets=params_from_jax(tree["params"]),
-        opts={name: _opt_from_jax(o) for name, o in tree["opts"].items()},
-        value_rms_left=_rms_from_jax(tree["value_rms_left"]),
-        **_onpolicy_parts_from_jax(tree),
-    )
+    out = dict(**_nets_from_jax(tree), value_rms_left=_rms_from_jax(tree["value_rms_left"]),
+               **_onpolicy_parts_from_jax(tree))
+    if tree.get("value_rms_tot") is not None:
+        out["value_rms_tot"] = _rms_from_jax(tree["value_rms_tot"])
+    return out
 
 
 def _onpolicy_parts_from_jax(tree: dict) -> dict:
@@ -306,9 +327,17 @@ def _load_module_opt(module: torch.nn.Module, opt: torch.optim.Optimizer, sd: di
         _adam_state(opt, p, o["exp_avg"][pname], o["exp_avg_sq"][pname], o["step"])
 
 
+def _load_nets(state, conv: dict) -> None:
+    """A two-agent state's networks and, for each trained one, its Adam state."""
+    state.nets.load_state_dict(conv["nets"])
+    for name, o in conv["opts"].items():
+        for pname, p in state.nets[name].named_parameters():
+            _adam_state(state.opts[name], p, o["exp_avg"][pname], o["exp_avg_sq"][pname], o["step"])
+
+
 def _load_env(state, conv: dict) -> None:
     dev = state.obs.device
-    for name in ("obs_rms", "value_rms", "value_rms_left"):
+    for name in ("obs_rms", "value_rms", "value_rms_left", "value_rms_tot"):
         if name in conv:
             for k in ("mean", "var", "count"):
                 getattr(getattr(state, name), k).copy_(conv[name][k])
@@ -370,14 +399,21 @@ def load_offpolicy_state(state, conv: dict) -> None:
 
 
 @torch.no_grad()
+def load_iddpg_state(state, conv: dict) -> None:
+    """Write an ``iddpg_state_from_jax`` conversion into a port IDDPGState in place."""
+    _load_nets(state, conv)
+    _load_env_parts(state, conv)
+    state.stats.load_state_dict(conv["stats"])
+    for k, v in conv["counters"].items():
+        setattr(state, k, v)
+
+
+@torch.no_grad()
 def load_ppo_state(state, conv: dict) -> None:
     """Write a ``ppo_state_from_jax`` or ``ma_state_from_jax`` conversion into
-    a port PPOState or IPPOState in place."""
+    a port PPOState or IPPOState (IPPO, QTOT, the team agents) in place."""
     if "nets" in conv:
-        state.nets.load_state_dict(conv["nets"])
-        for name, o in conv["opts"].items():
-            for pname, p in state.nets[name].named_parameters():
-                _adam_state(state.opts[name], p, o["exp_avg"][pname], o["exp_avg_sq"][pname], o["step"])
+        _load_nets(state, conv)
     else:
         _load_module_opt(state.actor, state.actor_opt, conv["actor"], conv["actor_opt"])
         _load_module_opt(state.critic, state.critic_opt, conv["critic"], conv["critic_opt"])

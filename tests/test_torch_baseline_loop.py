@@ -202,6 +202,7 @@ def test_port_modules_import_no_jax():
     neither JAX, flax, optax nor the JAX package."""
     names = [m.name for m in pkgutil.walk_packages(pql_tpu_torch.__path__, "pql_tpu_torch.")]
     assert {"pql_tpu_torch.algos.ddpg", "pql_tpu_torch.algos.sac", "pql_tpu_torch.algos.crossq",
+            "pql_tpu_torch.algos.iddpg", "pql_tpu_torch.algos.qtot", "pql_tpu_torch.algos.teams",
             "pql_tpu_torch.models.distributions", "pql_tpu_torch.train"} <= set(names)
     code = (
         "import importlib, sys\n"

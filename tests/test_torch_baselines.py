@@ -307,10 +307,11 @@ def test_episode_stats_match_jax():
         EpisodeStats(E, L, info_keys=("a",), info_modes=("every",), device="cpu")
 
 
-@pytest.mark.parametrize("name", ["IDDPG", "EQS", "EQ", "DDPGV"])
+@pytest.mark.parametrize("name", ["EQSD", "EQS", "EQ", "DDPGV"])
 def test_get_algo_refuses_unported(name):
-    with pytest.raises(NotImplementedError, match=r"not ported yet; ported: \['CrossQ', 'DDPG', 'IPPO', 'MAPPO', "
-                                                  r"'PPO', 'PQL', 'SAC'\]"):
+    with pytest.raises(NotImplementedError, match=r"not ported yet; ported: \['CrossQ', 'DDPG', 'IART', 'IDDPG', "
+                                                  r"'IPPO', 'IPPOTeam', 'IPPOTeam2', 'MAPPO', 'PPO', 'PQL', 'QTOTV1', "
+                                                  r"'QTOTV2', 'SAC'\]"):
         get_algo(name)
 
 

@@ -33,6 +33,7 @@ from chip_smoke import (
     ppo_reference,
     state_diffs,
     step_tol,
+    two_agent_reference,
 )
 from pql_tpu_torch.algos import get_algo
 from pql_tpu_torch.algos.pql import PQL
@@ -435,7 +436,10 @@ def test_ddpg_learning_gate_on_card(cuda):
 
 ON_POLICY = [("ppo", "Cartpole", {}), ("ppo", "Ant", dict(algo__value_norm=True)),
              ("ppo", "FrankaCubeStack", {}), ("ippo", "BimanualReacher", {}),
-             ("ippo", "BimanualReacherSym", dict(algo__same_policy=True)), ("mappo", "BimanualReacher", {})]
+             ("ippo", "BimanualReacherSym", dict(algo__same_policy=True)), ("mappo", "BimanualReacher", {}),
+             ("qtotv1", "BimanualReacher", dict(algo__value_norm=True)), ("qtotv2", "BimanualReacher", {}),
+             ("iart", "BimanualReacher", {}), ("ippoteam", "BimanualReacherSym", {}),
+             ("ippoteam2", "BimanualReacher", {})]
 
 
 @pytest.mark.gpu
@@ -474,6 +478,39 @@ def test_onpolicy_kill_and_resume_bitwise_on_card(cuda, tmp_path, algo, task, ex
     checkpoint.save_checkpoint(str(tmp_path / "state"), s)
     for _ in range(2):
         s, _ = agent.train_iter(s)
+    agent2 = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s2 = checkpoint.load_checkpoint(str(tmp_path / "state"), agent2.init(seed=7))
+    for _ in range(2):
+        s2, _ = agent2.train_iter(s2)
+    assert state_diffs(s, s2) == []
+
+
+@pytest.mark.gpu
+def test_two_agent_tier_on_card_matches_cpu(cuda):
+    """chip_smoke's two_agent_reference: IDDPG's warm-up and two iterations,
+    and two iterations of QTOTV1, QTOTV2, IART, IPPOTeam and IPPOTeam2, on
+    the card and the CPU from the same state and draws (it raises on a
+    difference beyond its tolerances)."""
+    assert len(two_agent_reference(cuda)["runs"]) == 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("task", ["BimanualReacher", "BimanualReacherSym"])
+def test_iddpg_iterates_and_resumes_bitwise_on_card(cuda, tmp_path, task):
+    """IDDPG on the card: 8 updates and E env steps per iteration, one replay
+    write per step, two reward channels in the ring, finite losses; a
+    checkpointed state resumed into a fresh agent continues bitwise."""
+    E = 64
+    cfg = make_config("iddpg", task=task, num_envs=E, algo__batch_size=256, algo__memory_size=4096, algo__warm_up=8)
+    agent = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s, _ = agent.warmup(agent.init(seed=0))
+    s, _ = agent.train_iter(s)
+    checkpoint.save_checkpoint(str(tmp_path / "state"), s)
+    for _ in range(2):
+        s, m = agent.train_iter(s)
+        assert all(bool(torch.isfinite(v)) for v in m.values()), m
+    assert (s.update_count, s.env_steps, s.replay.total_writes) == (24, (8 + 3) * E, 8 + 3)
+    assert s.replay.field("reward").shape[-1] == 2 and s.replay.data.device.type == "cuda"
     agent2 = get_algo(cfg.algo.name)(cfg, device=cuda)
     s2 = checkpoint.load_checkpoint(str(tmp_path / "state"), agent2.init(seed=7))
     for _ in range(2):
