@@ -110,18 +110,37 @@ line each:
    reward channels;
 27. team_main_path — QTOTV1, QTOTV2, IART, IPPOTeam and IPPOTeam2 on
    BimanualReacher @4096 and IPPOTeam on BimanualReacherSym @4096 at their
-   presets (horizon 16, batch 32768, 4 epochs), as two_agent_main_path;
+   presets (horizon 16, batch 32768, 4 epochs), as two_agent_main_path (a
+   profiled window on QTOTV1, IART and IPPOTeam only);
 28. iddpg_entry_path — ``train.main`` with IDDPG on BimanualReacher @4096,
    the ring cut to 100 slots (``IDDPG_ENTRY_ARGV``): warm-up, an eval and a
    checkpoint at iteration 12, the best model, the run resumed to 15 bitwise
    equal to an uninterrupted one, and the seconds of one more save and load
-   of the full state.
+   of the full state;
+29. eq_reference — the EMLP layers at full width on BimanualReacher's reps
+   and ``GroupEMLP`` on C4 and D4 (equivariant and invariant heads) on the
+   card against the CPU with the same raw weights, and equivariant on the
+   card under every group element; two iterations of EQ, EQS, EQG, EQSC,
+   EQSdata, EQS4 and MP, and of IPPOTeam and IART with the equivariant
+   classes, card vs CPU (``card_vs_cpu``), then each trained equivariant
+   network's |f(x·G_in) − f(x)·G_out| ≤ 1e-5·(1 + |f|) on the card (G_out = I
+   for a critic);
+30. eq_main_path — EQ, EQS, EQG, EQSC, EQSdata, EQS4 and MP on
+   BimanualReacher @4096, EQ on BimanualReacherSym @4096 and IPPOTeam with
+   the equivariant team actor @4096, at the presets (horizon 16, batch
+   32768, 4 epochs, EMLP 256 x 5, fp32; EQSdata twice the minibatches), as
+   two_agent_main_path with a profiled window on EQ, EQSC and EQS4 only,
+   and the equivariance check above on every trained network at full width;
+31. eq_entry_path — ``train.main algo=eqs4 task=BimanualReacher
+   num_envs=4096`` through ppo_entry_path: an eval and a checkpoint at
+   iteration 4, the best model, resumed to 6 bitwise equal to an
+   uninterrupted run, the checkpoint's bytes and save and load seconds.
 
 ``--entry`` runs ``ENTRY_RUNS`` instead: PPO Ant and IPPO through
 ppo_entry_path, IDDPG at its full preset (ring 5e6) through
 baseline_entry_path.
 
-Each main path, and each of phases 11, 12, 14, 16-18 and 20-28, resets the
+Each main path, and each of phases 11, 12, 14, 16-18 and 20-31, resets the
 kernels' launch counts just before it drives the port and reads them just
 after (0 ``c51_td_target`` launches on every on-policy path). Then the ``{"kernels": [...]}`` line, the nvidia-smi
 line, and last
@@ -261,14 +280,34 @@ TWO_AGENT_REF = [("iddpg", dict(BASELINE_REF, task="BimanualReacher")),
                  ("ippoteam2", dict(PPO_REF_SIZE, task="BimanualReacher"))]
 IDDPG_ARGV = ("algo=iddpg", "task=BimanualReacher", "num_envs=4096")
 IDDPG_DEPTH = (4, 5, 10, 2)  # warm, blocks x iterations timed, profiled: 56 iterations after the warm-up
-TEAM_PATHS = [((f"algo={a}", "task=BimanualReacher", "num_envs=4096"), (1, 2, 1, 1))
+# (a profiled window on QTOTV1, IART and IPPOTeam only: reading a profile
+# takes 7-8 s, and the script's time limit holds the equivariant tier too)
+TEAM_PATHS = [((f"algo={a}", "task=BimanualReacher", "num_envs=4096"), (1, 2, 1, int(a in ("qtotv1", "iart",
+                                                                                          "ippoteam"))))
               for a in ("qtotv1", "qtotv2", "iart", "ippoteam", "ippoteam2")] + [
-              (("algo=ippoteam", "task=BimanualReacherSym", "num_envs=4096"), (1, 2, 1, 1))]
+              (("algo=ippoteam", "task=BimanualReacherSym", "num_envs=4096"), (1, 2, 1, 0))]
 # the entry point's IDDPG run: the ring cut to 100 slots (409,600 transitions)
 # to keep the script's checkpoints small, stopped after 12 iterations (an eval
 # and a checkpoint at 12) and resumed to 15; ``--entry`` runs the full 5e6 ring
 IDDPG_ENTRY_ARGV = IDDPG_ARGV + ("algo.memory_size=409600",)
 IDDPG_ENTRY_ITERS = (12, 15)
+# the equivariant tier: the EMLP layers and small card-vs-CPU runs of every
+# agent (EMLP at full width), then the full-width paths at the presets
+# (horizon 16, batch 32768, 4 epochs, EMLP 256 x 5) @4096 as (argv, depth), a
+# profiled window on EQ, EQSC and EQS4 only; the entry point with EQS4
+EQ_TOL = 1e-5  # |f(x·G_in) − f(x)·G_out| and card vs CPU, relative to 1 + |f|: fp32 without TF32
+EQ_CLASSES = dict(algo__act_class="DiagGaussianEquivariantMLPPolicy", algo__cri_class="MLPCriticEquivariant")
+EQ_REF = [(a, dict(PPO_REF_SIZE, task="BimanualReacher")) for a in ("eq", "eqs", "eqg", "eqsc", "eqsdata", "eqs4",
+                                                                    "mp")] + [
+    ("ippoteam", dict(PPO_REF_SIZE, task="BimanualReacherSym", **EQ_CLASSES)),
+    ("iart", dict(PPO_REF_SIZE, task="BimanualReacher", **EQ_CLASSES))]
+EQ_PATHS = [((f"algo={a}", "task=BimanualReacher", "num_envs=4096"), (1, 1, 3, int(a in ("eq", "eqsc", "eqs4"))))
+            for a in ("eq", "eqs", "eqg", "eqsc", "eqsdata", "eqs4", "mp")] + [
+    (("algo=eq", "task=BimanualReacherSym", "num_envs=4096"), (1, 1, 3, 0)),
+    (("algo=ippoteam", "task=BimanualReacher", "num_envs=4096", "algo.act_class=DiagGaussianEquivariantMLPPolicy",
+      "algo.cri_class=MLPCriticEquivariant"), (1, 1, 3, 0))]
+EQ_ENTRY_ARGV = ("algo=eqs4", "task=BimanualReacher", "num_envs=4096")
+EQ_ENTRY_ITERS = (4, 6)  # an eval and a checkpoint at 4, resumed to 6
 PPO_ENTRY_ARGV = ("algo=ppo", "task=Cartpole")  # 4096 envs, horizon 16, batch 32768, 4 epochs
 PPO_ENTRY_ITERS = (8, 12)  # the first run stops after 8 iterations, the resumed one after 12
 PPO_ENTRY_EVAL_FREQ = 4
@@ -1373,6 +1412,22 @@ def baseline_main_path(dev, smi: str) -> dict:
     return dict(runs=runs)
 
 
+def timed_save_load(path: str, src, dst) -> tuple[float, float]:
+    """Seconds of one more full-state save of ``src`` to ``path`` and of its
+    load into ``dst`` (a state of the same config), each to the card's end."""
+    import torch
+    from pql_tpu_torch.utils import checkpoint
+
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(path, src)
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checkpoint.load_checkpoint(path, dst)
+    torch.cuda.synchronize()
+    return save_s, time.perf_counter() - t0
+
+
 def baseline_entry_path(dev, smi: str, argv=DDPG_CARTPOLE_ARGV, iters=BASELINE_ENTRY_ITERS) -> dict:
     """``pql_tpu_torch.train.main`` with ``argv`` (an agent with a warm-up; by
     default DDPG on Cartpole @16) for ``iters[0]`` iterations, with evals,
@@ -1446,14 +1501,7 @@ def baseline_entry_path(dev, smi: str, argv=DDPG_CARTPOLE_ARGV, iters=BASELINE_E
           f"{resumed.update_count} updates after {total} iterations")
     launches = dict(kernels.LAUNCHES)
     ckpt_bytes = os.path.getsize(ckpt_file)
-    t0 = time.perf_counter()
-    checkpoint.save_checkpoint(os.path.join(root, "timed"), resumed)
-    torch.cuda.synchronize()
-    save_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    checkpoint.load_checkpoint(os.path.join(root, "timed"), whole)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
+    save_s, load_s = timed_save_load(os.path.join(root, "timed"), resumed, whole)
     shutil.rmtree(root, ignore_errors=True)
     return dict(
         config=" ".join(argv) + f" (memory_size {cfg.algo.memory_size:g}: replay ring "
@@ -1515,14 +1563,15 @@ def ippo_learning_gate(dev) -> dict:
                 launches=dict(kernels.LAUNCHES))
 
 
-def card_vs_cpu(dev, refs) -> dict:
+def card_vs_cpu(dev, refs, after=None) -> dict:
     """For each (algo, config overrides) of ``refs``: the warm-up of an agent
     that has one, then two iterations, at a small size on the card and on
     the CPU, from the same initial state (drawn on the CPU from the seed)
     with the same draws: each network's parameter step within 1% of its
     norm, losses within 1e-3 (relative; absolute below 1), a replay ring
     within 1e-4. A dict of networks (a two-agent agent's) is held network
-    by network, IDDPG's targets included."""
+    by network, IDDPG's targets included. ``after(agent, state)``, when
+    given, checks the card's final state and returns a dict for the run."""
     import torch
     from pql_tpu_torch.algos import get_algo
     from pql_tpu_torch.cfg import make_config
@@ -1564,6 +1613,8 @@ def card_vs_cpu(dev, refs) -> dict:
             err = float((states[dev].replay.data.cpu() - states["cpu"].replay.data).abs().max())
             check(err <= 1e-4, f"{label}: card vs CPU replay differs by {err:.3g}")
             run["replay_max_abs_err"] = err
+        if after is not None:
+            run.update(after(agents[dev], states[dev]))
         out[f"{algo} {kwargs['task']}" + (" same_policy" if "algo__same_policy" in kwargs else "")] = run
     return out
 
@@ -1588,15 +1639,18 @@ def two_agent_reference(dev) -> dict:
     return dict(config=dict(TWO_AGENT_REF), iterations=2, runs=runs, launches=dict(kernels.LAUNCHES))
 
 
-def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters: int, profiled_iters: int) -> dict:
-    """A PPO, IPPO or MAPPO path at full width through the agent:
+def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters: int, profiled_iters: int,
+                 after=None) -> dict:
+    """An on-policy agent's path at full width through the agent:
     ``warm_iters`` + ``blocks`` x ``block_iters`` iterations timed in blocks,
-    then a profiled window of ``profiled_iters`` whose kernel time is the
-    device time of whole iterations; on a graphed task one replay of the
+    then a profiled window of ``profiled_iters`` (none when 0) whose kernel
+    time is the device time of whole iterations; on a graphed task one replay of the
     control step's graph, profiled alone, times H control steps of the sim
     (the window must hold at least 99% of their kernels), and CUDA events
     around each control step give the sim's span on the stream. The
-    kernels' launch counts are reset before the path runs and read after."""
+    kernels' launch counts are reset before the path runs and read after.
+    ``after(agent, state)``, when given, checks the final state and returns
+    a dict for the run's line."""
     import statistics
 
     import torch
@@ -1647,11 +1701,12 @@ def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
     timed_steps = sim_events[steps_before:]
     sim_span_ms = sum(a.elapsed_time(b) for a, b in timed_steps) / (blocks * block_iters)
     task.dynamics = graphed
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        run(profiled_iters)
-        torch.cuda.synchronize()
-        profiled_wall_ms = 1e3 * (time.perf_counter() - t1) / profiled_iters
+    if profiled_iters:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            run(profiled_iters)
+            torch.cuda.synchronize()
+            profiled_wall_ms = 1e3 * (time.perf_counter() - t1) / profiled_iters
     launches = dict(kernels.LAUNCHES)
     iters = warm_iters + blocks * block_iters + profiled_iters
     n_mb = agent.rows // cfg.algo.batch_size
@@ -1664,12 +1719,6 @@ def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
     trackers = {k: float(v) for k, v in state.stats.metrics().items()}
     check(all(math.isfinite(v) for v in trackers.values()), f"{label} trackers {trackers}")
 
-    t1 = time.perf_counter()
-    kernel_rows = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA
-                   and not getattr(r, "is_user_annotation", False)]
-    kernel_ms = sum(_self_device_us(r) for r in kernel_rows) / 1e3 / profiled_iters
-    window_launches = sum(r.count for r in kernel_rows)
-    profile_read_s = time.perf_counter() - t1
     ms = statistics.median(block_ms)
     out = dict(
         config=" ".join(argv) + f" (envs {E}, horizon {H}, batch {cfg.algo.batch_size}, epochs "
@@ -1679,10 +1728,22 @@ def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
         block_ms_per_iter=block_ms, losses_last=dict(zip(loss_keys, lo[-1].tolist())),
         update_count=state.update_count, updates_per_iter=cfg.algo.update_times * n_mb, env_steps=state.env_steps,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, trackers=trackers, launches=launches,
-        profiled_wall_ms_per_iter=profiled_wall_ms, device_ms_per_iter=kernel_ms, device_busy_share=kernel_ms / ms,
-        kernel_launches_per_iter=window_launches / profiled_iters, profile_read_s=profile_read_s,
         sim_span_ms_per_iter=sim_span_ms,
     )
+    if hasattr(task, "get_symmetry"):
+        out["symmetry_tracker_mean"] = float(agent.env.symmetry_tracker(state.env_state).mean())
+    if after is not None:
+        out.update(after(agent, state))
+    if not profiled_iters:
+        return out
+    t1 = time.perf_counter()
+    kernel_rows = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA
+                   and not getattr(r, "is_user_annotation", False)]
+    kernel_ms = sum(_self_device_us(r) for r in kernel_rows) / 1e3 / profiled_iters
+    window_launches = sum(r.count for r in kernel_rows)
+    out.update(profiled_wall_ms_per_iter=profiled_wall_ms, device_ms_per_iter=kernel_ms,
+               device_busy_share=kernel_ms / ms, kernel_launches_per_iter=window_launches / profiled_iters,
+               profile_read_s=time.perf_counter() - t1)
     graphs = getattr(task, "_graphs", None)
     if graphs:
         graph = graphs[(E, torch.device(dev))]
@@ -1697,19 +1758,17 @@ def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
         sim_ms = H * sum(_self_device_us(r) for r in gprof.key_averages() if r.device_type == DeviceType.CUDA) / 1e3
         out.update(sim_graph_device_ms_per_iter=sim_ms, learner_and_rest_device_ms_per_iter=kernel_ms - sim_ms,
                    launches_per_control_step=graph_kernels, graph_build_s=graph.build_s)
-    if hasattr(task, "get_symmetry"):
-        out["symmetry_tracker_mean"] = float(agent.env.symmetry_tracker(state.env_state).mean())
     return out
 
 
-def onpolicy_paths(dev, smi: str, paths) -> dict:
+def onpolicy_paths(dev, smi: str, paths, after=None) -> dict:
     """``onpolicy_run`` of each (argv, depth) in ``paths``, one after another."""
     import torch
 
     runs = {}
     for argv, depth in paths:
         t0 = time.perf_counter()
-        r = onpolicy_run(dev, smi, argv, *depth)
+        r = onpolicy_run(dev, smi, argv, *depth, after=after)
         r["wall_s"] = time.perf_counter() - t0
         runs[" ".join(argv)] = r
         torch.cuda.empty_cache()
@@ -1840,15 +1899,143 @@ def ppo_entry_path(dev, smi: str, argv=PPO_ENTRY_ARGV, iters=PPO_ENTRY_ITERS) ->
     launches = dict(kernels.LAUNCHES)
     check(launches["c51_td_target"] == 0, f"the {cfg.algo.name} entry path launched c51_td_target")
     ckpt_bytes = os.path.getsize(ckpt_file)
+    save_s, load_s = timed_save_load(os.path.join(root, "timed"), resumed, whole)
     shutil.rmtree(root, ignore_errors=True)
     return dict(
         config=" ".join(argv) + f" (envs {cfg.num_envs}, horizon {cfg.algo.horizon_len}, batch "
                                           f"{cfg.algo.batch_size})", card=smi,
         iterations_first=first, iterations_resumed=total, eval_iterations=eval_its,
         eval_returns=[r["eval/return"] for r in evals], resumed_from_iteration=first, bitwise_equal_after_resume=True,
-        checkpoint_bytes=ckpt_bytes, wall_s_first=wall_first, wall_s_resumed=wall_resumed,
-        ms_per_iter_by_interval=ms, ms_per_iter_median=statistics.median(ms.values()), launches=launches,
+        checkpoint_bytes=ckpt_bytes, checkpoint_save_s=save_s, checkpoint_load_s=load_s, wall_s_first=wall_first,
+        wall_s_resumed=wall_resumed, ms_per_iter_by_interval=ms, ms_per_iter_median=statistics.median(ms.values()),
+        launches=launches,
     )
+
+
+def eq_nets(agent, state) -> dict:
+    """Each equivariant network of an agent's state with the task's reps it
+    must obey: name -> (module, G_in, G_out or None for an invariant one).
+    A network on the joint obs (EQG's pair, EQSC's critic, IPPOTeam's
+    ``actor_team``, ``critic_tot`` and ``critic_team``) takes the joint rep
+    and an actor there emits the joint action; the others one hand's view
+    (``_left`` in the name: the left hand's) and action."""
+    import torch
+    from pql_tpu_torch.models.emlp import EMLP, GroupEquivariantLinear
+
+    ma = agent.ma
+    rep = lambda g: torch.tensor(g, dtype=torch.float32, device=agent.device)  # noqa: E731
+    g_act = rep(ma.act_gen())
+    nets = state.nets if hasattr(state, "nets") else {"actor": state.actor, "critic": state.critic}
+    out = {}
+    for name, m in nets.items():
+        if not any(isinstance(x, EMLP) for x in m.modules()):
+            continue
+        first = next(x for x in m.modules() if isinstance(x, GroupEquivariantLinear))
+        central = first.weight.shape[1] == ma.shared_obs_dim
+        g_in = rep(ma.joint_obs_gen()) if central else rep(ma.obs_gen(1 if "_left" in name else 0))
+        g_out = None if name.startswith("critic") else torch.block_diag(g_act, g_act) if central else g_act
+        out[name] = (m, g_in, g_out)
+    return out
+
+
+def equivariance_errors(agent, state, rows: int = 4096) -> dict:
+    """|f(x·G_in) − f(x)·G_out|_max / (1 + |f(x)|_max) of each equivariant
+    network of the state (``eq_nets``; an actor's mean, G_out = I for a
+    critic) on ``rows`` standard-normal inputs on its device; each within
+    ``EQ_TOL``."""
+    import torch
+
+    gen = torch.Generator(device=agent.device).manual_seed(0)
+    errs = {}
+    for name, (m, g_in, g_out) in eq_nets(agent, state).items():
+        x = torch.randn(rows, g_in.shape[0], generator=gen, device=agent.device)
+        with torch.no_grad():
+            y, y_g = m(x), m(x @ g_in)
+        y, y_g = (y[0], y_g[0]) if isinstance(y, tuple) else (y, y_g)
+        want = y if g_out is None else y @ g_out
+        errs[name] = float((y_g - want).abs().max()) / (1.0 + float(y.abs().max()))
+        check(errs[name] <= EQ_TOL, f"{agent.name} {name}: equivariance error {errs[name]:.3g} > {EQ_TOL}")
+    check(bool(errs) == (agent.name not in ("EQSdata", "MP")), f"{agent.name}: equivariant networks {sorted(errs)}")
+    return dict(equivariance_err=errs)
+
+
+def eq_layer_check(dev) -> dict:
+    """The EMLP layers at full width (256 hidden, 5 linear maps) on
+    BimanualReacher's arm reps, and ``GroupEMLP`` on C4 and D4 (a rotation
+    by π/2 and a reflection of the plane), each with an equivariant and an
+    invariant head: raw weights drawn N(0, 0.1²) (off the equivariant
+    subspace), then the same module on the card and on the CPU on the same
+    4096 inputs within ``EQ_TOL`` (relative to 1 + |f|), and equivariant on
+    the card under every group element."""
+    import copy
+
+    import torch
+    from pql_tpu_torch.envs.bimanual import BimanualReacher
+    from pql_tpu_torch.models import emlp
+
+    spec = BimanualReacher.equivariance
+    g_obs, g_act = emlp.sign_rep(spec.obs_signs[0]), emlp.sign_rep(spec.act_signs)
+    rot, refl = emlp.cyclic_rotation2d(4), emlp.sign_rep([1.0, -1.0])
+    c4, d4 = emlp.FiniteGroup(obs=[rot], act=[rot]), emlp.FiniteGroup(obs=[rot, refl], act=[rot, refl])
+    gen = torch.Generator().manual_seed(0)
+    nets = {"EMLP C2 equivariant": (emlp.EMLP(g_obs, g_act, gen=gen), [g_obs], [g_act]),
+            "EMLP C2 invariant": (emlp.EMLP(g_obs, 1, gen=gen), [g_obs], None),
+            "DiagGaussianEquivariantMLPPolicy": (emlp.DiagGaussianEquivariantMLPPolicy(g_obs, g_act, gen=gen),
+                                                 [g_obs], [g_act]),
+            "MLPCriticEquivariant": (emlp.MLPCriticEquivariant(g_obs, gen=gen), [g_obs], None)}
+    for gname, grp in (("C4", c4), ("D4", d4)):
+        obs, act = grp.elements("obs"), grp.elements("act")
+        nets[f"GroupEMLP {gname} equivariant"] = (emlp.GroupEMLP(obs, act, grp.mul, gen=gen), obs, act)
+        nets[f"GroupEMLP {gname} invariant"] = (emlp.GroupEMLP(obs, 3, grp.mul, gen=gen), obs, None)
+    out = {}
+    for name, (net, elems_in, elems_out) in nets.items():
+        with torch.no_grad():
+            for p in net.parameters():
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+        first = lambda y: y[0] if isinstance(y, tuple) else y  # noqa: E731
+        x = torch.randn(4096, len(elems_in[0]), generator=gen)
+        card = copy.deepcopy(net).to(dev)
+        with torch.no_grad():
+            want, got = first(net(x)), first(card(x.to(dev))).cpu()
+            err = float((got - want).abs().max()) / (1.0 + float(want.abs().max()))
+            check(err <= EQ_TOL, f"{name}: card vs CPU {err:.3g}")
+            eq_err = 0.0
+            y = first(card(x.to(dev)))
+            for k, e in enumerate(elems_in):
+                g_in = torch.tensor(e, dtype=torch.float32, device=dev)
+                y_g = first(card(x.to(dev) @ g_in))
+                target = y if elems_out is None else y @ torch.tensor(elems_out[k], dtype=torch.float32, device=dev)
+                eq_err = max(eq_err, float((y_g - target).abs().max()) / (1.0 + float(y.abs().max())))
+            check(eq_err <= EQ_TOL, f"{name}: equivariance error on the card {eq_err:.3g}")
+        out[name] = dict(card_vs_cpu_rel_err=err, equivariance_err=eq_err, group_order=len(elems_in))
+    return out
+
+
+def eq_reference(dev) -> dict:
+    """The EMLP layers card vs CPU (``eq_layer_check``); two iterations of
+    EQ, EQS, EQG, EQSC, EQSdata, EQS4 and MP, and of IPPOTeam and IART with
+    the equivariant classes, at a small size (EMLP at full width) on the
+    card and on the CPU (``card_vs_cpu``), then the equivariance of each
+    trained equivariant network on the card (``equivariance_errors``); the
+    kernels' launch counts are reset before and read after."""
+    from pql_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    layers = eq_layer_check(dev)
+    runs = card_vs_cpu(dev, EQ_REF, after=equivariance_errors)
+    return dict(config=dict(EQ_REF), iterations=2, layers=layers, runs=runs, launches=dict(kernels.LAUNCHES))
+
+
+def eq_main_path(dev, smi: str) -> dict:
+    """EQ, EQS, EQG, EQSC, EQSdata, EQS4 and MP on BimanualReacher @4096, EQ
+    on BimanualReacherSym @4096 and IPPOTeam with the equivariant team actor
+    @4096, at their presets (horizon 16, batch 32768, 4 epochs, EMLP 256 x 5,
+    fp32), as ``two_agent_main_path`` (a profiled window on EQ, EQSC and
+    EQS4 only), and each trained network's equivariance on the card at full
+    width (``equivariance_errors``)."""
+    out = onpolicy_paths(dev, smi, EQ_PATHS, after=equivariance_errors)
+    _check_sym_share(out["runs"])
+    return out
 
 
 def main(argv: list[str]) -> int:
@@ -1940,6 +2127,12 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="team_main_path", wall_s=s, **tmain))
     ientry, s = timed(baseline_entry_path, dev, smi, IDDPG_ENTRY_ARGV, IDDPG_ENTRY_ITERS)
     emit(dict(phase="iddpg_entry_path", wall_s=s, **ientry))
+    eref, s = timed(eq_reference, dev)
+    emit(dict(phase="eq_reference", card=smi, wall_s=s, **eref))
+    emain, s = timed(eq_main_path, dev, smi)
+    emit(dict(phase="eq_main_path", wall_s=s, **emain))
+    eentry, s = timed(ppo_entry_path, dev, smi, EQ_ENTRY_ARGV, EQ_ENTRY_ITERS)
+    emit(dict(phase="eq_entry_path", wall_s=s, **eentry))
 
     by_path = {"pql_d Cartpole@4096": main["launches"], "pql_d AllegroHand@16384": allegro_d["launches"],
                "pql_d Cartpole@4096 entry point": entry["launches"],
@@ -1954,7 +2147,10 @@ def main(argv: list[str]) -> int:
                "two-agent card-vs-CPU reference runs": tref["launches"],
                "algo=iddpg BimanualReacher@4096": imain["launches"],
                **{f"{name} (team)": r["launches"] for name, r in tmain["runs"].items()},
-               "algo=iddpg BimanualReacher@4096 entry point": ientry["launches"]}
+               "algo=iddpg BimanualReacher@4096 entry point": ientry["launches"],
+               "equivariant card-vs-CPU reference runs": eref["launches"],
+               **{f"{name} (equivariant)": r["launches"] for name, r in emain["runs"].items()},
+               "algo=eqs4 BimanualReacher@4096 entry point": eentry["launches"]}
     emit({"kernels": [
         dict(name=c["name"], route="cuda", source=kernels.KERNELS[c["name"]]["source"],
              replaces=kernels.KERNELS[c["name"]]["replaces"],

@@ -1,11 +1,14 @@
 """Algorithms of the port on one device, by ``algo.name`` (port of
-pql_tpu/algos/__init__.py:20-56): PQL / PQL-D; the off-policy baselines
+pql_tpu/algos/__init__.py:20-46): PQL / PQL-D; the off-policy baselines
 DDPG, SAC and CrossQ and the two-hand IDDPG; the on-policy PPO, its
-two-agent IPPO and MAPPO, QTOTV1 and QTOTV2, and the split-population team
-agents IART, IPPOTeam and IPPOTeam2. Any other name is not ported yet."""
+two-agent IPPO and MAPPO, QTOTV1 and QTOTV2, the split-population team
+agents IART, IPPOTeam and IPPOTeam2, and the equivariant family EQ, EQG,
+EQS, EQS4, EQSC, EQSdata and MP. Any other name (EQSD, EQSD2, PPOV, IPPOV,
+DDPGV) is not ported yet."""
 
 from pql_tpu_torch.algos.crossq import CrossQ
 from pql_tpu_torch.algos.ddpg import DDPG, OffPolicyState
+from pql_tpu_torch.algos.eq import EQ, EQG, EQS, EQS4, EQSC, MP, EQSCState, EQSdata
 from pql_tpu_torch.algos.iddpg import IDDPG, IDDPGState
 from pql_tpu_torch.algos.ippo import IPPO, IPPOState
 from pql_tpu_torch.algos.mappo import MAPPO
@@ -17,7 +20,8 @@ from pql_tpu_torch.algos.teams import IART, IPPOTeam, IPPOTeam2
 
 ALGO_REGISTRY = {"PQL": PQL, "DDPG": DDPG, "SAC": SAC, "CrossQ": CrossQ, "IDDPG": IDDPG, "PPO": PPO, "IPPO": IPPO,
                  "MAPPO": MAPPO, "QTOTV1": QTOTV1, "QTOTV2": QTOTV2, "IART": IART, "IPPOTeam": IPPOTeam,
-                 "IPPOTeam2": IPPOTeam2}
+                 "IPPOTeam2": IPPOTeam2, "EQ": EQ, "EQG": EQG, "EQS": EQS, "EQS4": EQS4, "EQSC": EQSC,
+                 "EQSdata": EQSdata, "MP": MP}
 
 
 def get_algo(name: str):
@@ -28,4 +32,4 @@ def get_algo(name: str):
 
 __all__ = ["ALGO_REGISTRY", "get_algo", "PQL", "PQLState", "DDPG", "OffPolicyState", "SAC", "SACState", "CrossQ",
            "IDDPG", "IDDPGState", "PPO", "PPOState", "IPPO", "IPPOState", "MAPPO", "QTOTV1", "QTOTV2", "IART",
-           "IPPOTeam", "IPPOTeam2"]
+           "IPPOTeam", "IPPOTeam2", "EQ", "EQG", "EQS", "EQS4", "EQSC", "EQSCState", "EQSdata", "MP"]

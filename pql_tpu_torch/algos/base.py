@@ -50,8 +50,22 @@ def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.algo.compute_dtype == "bfloat16" else torch.float32
 
 
+def refuse_equivariant(cfg) -> None:
+    """An ``Equivariant`` act_class or cri_class needs the task's reps, which
+    only the agents building their networks through ``ma_base.MultiAgentCtx``
+    pass (IPPO and the EQ family, QTOT, the team agents); PQL, DDPG, SAC,
+    CrossQ, PPO, MAPPO and IDDPG build theirs from dims, as the JAX ones do,
+    and refuse one."""
+    for field in ("act_class", "cri_class"):
+        name = getattr(cfg.algo, field)
+        if "Equivariant" in name:
+            raise ValueError(f"algo.name={cfg.algo.name!r} takes no equivariant network (algo.{field}={name!r}): "
+                             "only the two-agent IPPO family, QTOT and the team agents build one")
+
+
 def build_actor(cfg, obs_dim: int, act_dim: int, gen: torch.Generator) -> nn.Module:
     """The policy named by cfg.algo.act_class."""
+    refuse_equivariant(cfg)
     cls = get_model(cfg.algo.act_class)
     return cls(obs_dim, act_dim, gen=gen, dtype=compute_dtype(cfg))
 
@@ -60,6 +74,7 @@ def build_critic(cfg, obs_dim: int, act_dim: int, gen: torch.Generator) -> nn.Mo
     """The critic named by cfg.algo.cri_class; distl=True prepends
     'Distributional' (reference pql_v_learner.py:30-31). A state-value
     ``MLPCritic`` takes the obs alone."""
+    refuse_equivariant(cfg)
     name = cfg.algo.cri_class
     if cfg.algo.distl and "Distributional" not in name:
         name = "Distributional" + name

@@ -76,6 +76,7 @@ class IDDPG(ma_base.NetsDictAgent, DDPG):
     name = "IDDPG"
 
     def __init__(self, cfg, device: str | torch.device = "cuda"):
+        base.refuse_equivariant(cfg)
         super().__init__(cfg, device)
         self.ma = ma_base.MultiAgentCtx(self.env)
         self.policy_dim = self.ma.action_dim  # the target-policy normals are per hand, [U, B, a]

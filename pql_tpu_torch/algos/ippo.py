@@ -2,8 +2,9 @@
 
 Two actor/critic pairs, one per hand, each trained by PPO on its own obs
 view and reward channel (its ``detailed_reward`` terms and the shared ones,
-``utils/symmetry.py``), with a value-rms each; with ``algo.same_policy`` one
-pair serves both hands and takes one step on the summed losses. The joint
+``utils/symmetry.py``), with a value-rms each; with ``algo.same_policy``
+(or a subclass's hook ``same_policy = True``, EQ's) one pair serves both
+hands and takes one step on the summed losses. The joint
 obs-rms is updated in the rollout and each hand's view is cut from the
 normalized joint obs, as the rollout saw it. One permutation per epoch
 orders both hands' minibatches. The mirrored-episode tracker routes obs,
@@ -21,7 +22,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from pql_tpu_torch.algos import base, ma_base
+from pql_tpu_torch.algos import ma_base
 from pql_tpu_torch.algos.ppo import PPO, critic_value, value_targets
 from pql_tpu_torch.envs.base import VecEnvState
 from pql_tpu_torch.ops.running_norm import RunningMeanStd
@@ -47,11 +48,13 @@ class IPPOState:
 
 class IPPO(ma_base.NetsDictAgent, PPO):
     name = "IPPO"
+    same_policy = False  # a subclass's hook (EQ: True), as cfg.algo.same_policy
 
     def __init__(self, cfg, device: str | torch.device = "cuda"):
         super().__init__(cfg, device)
         self.ma = ma_base.MultiAgentCtx(self.env)
-        self.same_policy = bool(cfg.algo.same_policy)
+        if cfg.algo.same_policy:
+            self.same_policy = True
         if self.same_policy and self.ma.obs_dims[0] != self.ma.obs_dims[1]:
             raise ValueError("same_policy requires equal per-hand obs dims")
 
@@ -63,10 +66,7 @@ class IPPO(ma_base.NetsDictAgent, PPO):
         nets = {"actor": ma.make_actor(cfg, g, 0), "critic": ma.make_critic(cfg, g, 0)}
         if not self.same_policy:
             nets.update(actor_left=ma.make_actor(cfg, g, 1), critic_left=ma.make_critic(cfg, g, 1))
-        nets = nn.ModuleDict(nets).to(self.device)
-        opts = {k: base.build_optimizer(m, cfg.algo.actor_lr if k.startswith("actor") else cfg.algo.critic_lr)
-                for k, m in nets.items()}
-        return dict(nets=nets, opts=opts)
+        return self._build(nets)
 
     def _state_cls(self):
         return IPPOState
@@ -133,7 +133,7 @@ class IPPO(ma_base.NetsDictAgent, PPO):
         losses, then one of the critic; else a step of each of the four
         networks on its own loss, in the order actor, critic, actor_left,
         critic_left."""
-        nets, opts, g = state.nets, state.opts, self.cfg.algo.max_grad_norm
+        nets = state.nets
         (ob_r, *rest_r), (ob_l, *rest_l) = batch[:6], batch[6:]
         a_r, c_r = self._losses(nets["actor"], nets["critic"], ob_r, ob_r, *rest_r)
         a_l, c_l = self._losses(nets[self._left("actor")], nets[self._left("critic")], ob_l, ob_l, *rest_l)
@@ -141,7 +141,7 @@ class IPPO(ma_base.NetsDictAgent, PPO):
             losses = {"actor": a_r + a_l, "critic": c_r + c_l}
         else:
             losses = {"actor": a_r, "critic": c_r, "actor_left": a_l, "critic_left": c_l}
-        return {k: base.descend(opts[k], list(nets[k].parameters()), loss, g) for k, loss in losses.items()}
+        return self._step_all(state, losses)
 
     # ------------------------------------------------------------ eval hook
 

@@ -5,54 +5,31 @@ pql_tpu/algos/ma_base.py:30-191).
   ``SymmetryManager``, with the per-hand model builders and the C2 rep
   generators of the task's ``EquivarianceSpec``;
 - ``NetsDictAgent``: what the loop takes from a state whose networks sit in
-  one ``nn.ModuleDict`` (IPPO, QTOT, IDDPG, the team agents);
+  one ``nn.ModuleDict`` (IPPO, QTOT, IDDPG, the team agents, the EQ
+  family), and the step of each network on its own loss;
 - ``gae``: GAE with the timeout XOR mask, or plain discounted returns;
 - ``normalize_advantages``, ``ppo_actor_loss``, ``ppo_value_loss``: the
   per-minibatch whitening (population std) and the clipped losses;
 - ``epoch_minibatches``, ``flat``, ``loss_metrics``.
 
-The rep helpers ``sign_rep``, ``perm_sign_rep`` and ``concat_reps`` are a
-numpy copy of those of pql_tpu/models/emlp.py:55-85.
+The C2 rep helpers ``sign_rep``, ``perm_sign_rep`` and ``concat_reps``
+come from ``models/emlp.py``. ``make_actor`` / ``make_critic`` build an
+``Equivariant`` class from the task's reps (pql_tpu/algos/ma_base.py:82-96):
+an actor on ``obs_gen(side)`` → ``act_gen()``, a critic on ``obs_gen(side)``
+or, ``central``, ``joint_obs_gen()``; ``DoubleQEquivariant`` on the obs and
+action reps.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
-
-import numpy as np
 import torch
 from torch import nn
 
-from pql_tpu_torch.algos.base import compute_dtype
+from pql_tpu_torch.algos.base import build_optimizer, compute_dtype, descend
 from pql_tpu_torch.envs.base import VecEnv
 from pql_tpu_torch.models import get_model
+from pql_tpu_torch.models.emlp import concat_reps, perm_sign_rep, sign_rep
 from pql_tpu_torch.utils.symmetry import EquivarianceSpec, MultiAgentSpec, SymmetryManager
-
-
-def sign_rep(signs: Sequence[float]) -> tuple:
-    """Generator of a diagonal ±1 representation, as a nested tuple."""
-    return tuple(map(tuple, np.diag(np.asarray(signs, np.float32))))
-
-
-def perm_sign_rep(perm: Sequence[int], signs: Sequence[float] | None = None) -> tuple:
-    """Generator acting on row vectors as (x @ G)[i] = sign[i] · x[perm[i]]."""
-    d = len(perm)
-    signs = signs if signs is not None else [1.0] * d
-    m = np.zeros((d, d), np.float32)
-    for i, (p, s) in enumerate(zip(perm, signs)):
-        m[int(p), i] = float(s)
-    return tuple(map(tuple, m))
-
-
-def concat_reps(*gens: tuple) -> tuple:
-    """Direct sum (block diagonal) of generators."""
-    mats = [np.asarray(g, np.float32) for g in gens]
-    d = sum(m.shape[0] for m in mats)
-    out, o = np.zeros((d, d), np.float32), 0
-    for m in mats:
-        out[o : o + m.shape[0], o : o + m.shape[0]] = m
-        o += m.shape[0]
-    return tuple(map(tuple, out))
 
 
 class NetsDictAgent:
@@ -69,6 +46,21 @@ class NetsDictAgent:
     @staticmethod
     def snapshot_parts(state) -> tuple[nn.ModuleDict, nn.ModuleDict]:
         return state.nets, nn.ModuleDict({k: m for k, m in state.nets.items() if k.startswith("critic")})
+
+    def _build(self, nets: dict) -> dict:
+        """The networks as one ``nn.ModuleDict`` on the agent's device, and an
+        AdamW each (the actor or critic learning rate by name)."""
+        nets = nn.ModuleDict(nets).to(self.device)
+        algo = self.cfg.algo
+        opts = {k: build_optimizer(m, algo.actor_lr if k.startswith("actor") else algo.critic_lr)
+                for k, m in nets.items()}
+        return dict(nets=nets, opts=opts)
+
+    def _step_all(self, state, losses: dict) -> dict:
+        """One AdamW step of each network on its loss, in the dict's order;
+        returns the detached losses."""
+        g = self.cfg.algo.max_grad_norm
+        return {k: descend(state.opts[k], list(state.nets[k].parameters()), loss, g) for k, loss in losses.items()}
 
 
 class MultiAgentCtx:
@@ -108,12 +100,20 @@ class MultiAgentCtx:
         return concat_reps(self.obs_gen(0), self.obs_gen(1))
 
     def make_actor(self, cfg, gen: torch.Generator, side: int = 0):
-        return get_model(cfg.algo.act_class)(self.obs_dims[side], self.action_dim, gen=gen, dtype=compute_dtype(cfg))
+        cls, dtype = get_model(cfg.algo.act_class), compute_dtype(cfg)
+        if "Equivariant" in cfg.algo.act_class:
+            return cls(gen_in=self.obs_gen(side), gen_out=self.act_gen(), gen=gen, dtype=dtype)
+        return cls(self.obs_dims[side], self.action_dim, gen=gen, dtype=dtype)
 
     def make_critic(self, cfg, gen: torch.Generator, side: int = 0, central: bool = False):
         """A state-value critic on one hand's view, or on the joint obs (``central``)."""
-        in_dim = self.shared_obs_dim if central else self.obs_dims[side]
-        return get_model(cfg.algo.cri_class)(in_dim, gen=gen, dtype=compute_dtype(cfg))
+        cls, dtype = get_model(cfg.algo.cri_class), compute_dtype(cfg)
+        if "Equivariant" in cfg.algo.cri_class:
+            rep = self.joint_obs_gen() if central else self.obs_gen(side)
+            if cfg.algo.cri_class == "DoubleQEquivariant":
+                return cls(gen_obs=rep, gen_act=self.act_gen(), gen=gen, dtype=dtype)
+            return cls(gen_in=rep, gen=gen, dtype=dtype)
+        return cls(self.shared_obs_dim if central else self.obs_dims[side], gen=gen, dtype=dtype)
 
     def split_obs(self, obs, tracker):
         return self.manager.get_multi_agent_obs(obs, tracker)

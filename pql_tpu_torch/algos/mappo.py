@@ -26,6 +26,7 @@ class MAPPO(PPO):
     name = "MAPPO"
 
     def __init__(self, cfg, device: str | torch.device = "cuda"):
+        base.refuse_equivariant(cfg)
         super().__init__(cfg, device)
         self.ma = ma_base.MultiAgentCtx(self.env)
         if self.ma.obs_dims[0] != self.ma.obs_dims[1]:

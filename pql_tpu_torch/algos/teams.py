@@ -31,9 +31,10 @@ remainder is dropped).
 - IPPOTeam2: IPPOTeam with the individual streams on the first half alone.
 
 The state is an ``IPPOState`` whose ``nets`` hold the agent's networks; the
-rest is PPO's skeleton (``algos/ppo.py``). An equivariant ``act_class``
-needs the equivariant tier's models, which the port does not have yet, and
-is refused.
+rest is PPO's skeleton (``algos/ppo.py``). With an ``Equivariant``
+``act_class`` / ``cri_class`` the per-hand and central networks come
+equivariant from ``ma_base.MultiAgentCtx`` and IPPOTeam's team actor is a
+``DiagGaussianEquivariantMLPPolicy`` on the joint reps.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from pql_tpu_torch.algos import base, ma_base
 from pql_tpu_torch.algos.ippo import IPPOState
 from pql_tpu_torch.algos.ppo import PPO
 from pql_tpu_torch.models import get_model
+from pql_tpu_torch.models.emlp import concat_reps
 from pql_tpu_torch.ops.running_norm import RunningMeanStd
 
 
@@ -52,9 +54,6 @@ class _SplitPopBase(ma_base.NetsDictAgent, PPO):
     def __init__(self, cfg, device: str | torch.device = "cuda"):
         if cfg.num_envs % 2:
             raise ValueError(f"{self.name} needs an even num_envs")
-        if "Equivariant" in cfg.algo.act_class:
-            raise NotImplementedError(f"{self.name} with act_class={cfg.algo.act_class!r} needs the equivariant "
-                                      "tier (pql_tpu/models/emlp.py), which is not ported yet")
         super().__init__(cfg, device)
         self.ma = ma_base.MultiAgentCtx(self.env)
         self.half = self.num_envs // 2
@@ -73,18 +72,6 @@ class _SplitPopBase(ma_base.NetsDictAgent, PPO):
         """Present as in the JAX state, never moved."""
         return dict(value_rms=RunningMeanStd((1,), device=self.device),
                     value_rms_left=RunningMeanStd((1,), device=self.device))
-
-    def _build(self, nets: dict) -> dict:
-        nets = nn.ModuleDict(nets).to(self.device)
-        cfg = self.cfg
-        opts = {k: base.build_optimizer(m, cfg.algo.actor_lr if k.startswith("actor") else cfg.algo.critic_lr)
-                for k, m in nets.items()}
-        return dict(nets=nets, opts=opts)
-
-    def _step_all(self, state, losses: dict) -> dict:
-        """One AdamW step of each network on its loss, in the dict's order."""
-        g = self.cfg.algo.max_grad_norm
-        return {k: base.descend(state.opts[k], list(state.nets[k].parameters()), loss, g) for k, loss in losses.items()}
 
     def _actor_loss(self, actor, obs, actions, logp_old, adv):
         """The clipped surrogate on the whitened advantage, and the new log-probs."""
@@ -229,10 +216,19 @@ class IPPOTeam(_SplitPopBase):
         cfg, ma = self.cfg, self.ma
         nets = {"actor": ma.make_actor(cfg, g, 0), "actor_left": ma.make_actor(cfg, g, 1),
                 "critic": ma.make_critic(cfg, g, 0), "critic_left": ma.make_critic(cfg, g, 1),
-                "actor_team": get_model("DiagGaussianMLPPolicy")(self.obs_dim, 2 * ma.action_dim, gen=g,
-                                                                 dtype=base.compute_dtype(cfg)),
+                "actor_team": self._team_actor(g),
                 "critic_tot": ma.make_critic(cfg, g, central=True), "critic_team": ma.make_critic(cfg, g, central=True)}
         return self._build(nets)
+
+    def _team_actor(self, g: torch.Generator):
+        """The joint Gaussian actor on the whole obs (action dim 2a): with an
+        ``Equivariant`` act_class on a task with an ``EquivarianceSpec``, an
+        equivariant one on joint_obs_gen → act_gen ⊕ act_gen (teams.py:354-360)."""
+        ma, dtype = self.ma, base.compute_dtype(self.cfg)
+        if "Equivariant" in self.cfg.algo.act_class and ma.eq is not None:
+            return get_model("DiagGaussianEquivariantMLPPolicy")(
+                gen_in=ma.joint_obs_gen(), gen_out=concat_reps(ma.act_gen(), ma.act_gen()), gen=g, dtype=dtype)
+        return get_model("DiagGaussianMLPPolicy")(self.obs_dim, 2 * ma.action_dim, gen=g, dtype=dtype)
 
     def _action_normals(self, gen: torch.Generator) -> dict[str, torch.Tensor]:
         H, a = self.cfg.algo.horizon_len, self.ma.action_dim

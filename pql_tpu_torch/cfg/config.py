@@ -1,7 +1,8 @@
 """Dataclass configuration tree for the PyTorch port.
 
-A copy of the PQL, off-policy baseline (DDPG, SAC, CrossQ, IDDPG) and
-on-policy (PPO, IPPO, MAPPO, QTOTV1/V2, IART, IPPOTeam/IPPOTeam2) parts of
+A copy of the PQL, off-policy baseline (DDPG, SAC, CrossQ, IDDPG),
+on-policy (PPO, IPPO, MAPPO, QTOTV1/V2, IART, IPPOTeam/IPPOTeam2) and
+equivariant (EQ, EQG, EQS, EQS4, MP, EQSC, EQSdata) parts of
 ``pql_tpu.cfg.config``, kept here so the port imports nothing of
 the JAX package. The CLI grammar is the same:
 
@@ -116,9 +117,11 @@ class AlgoConfig:
 
 
 # ppo_algo.yaml; the two-agent agents reuse it with the agent swapped (the
-# JAX package's _ppo_like for QTOT and the team agents)
+# JAX package's _ppo_like for QTOT, the team agents and the EQ family)
 _ON_POLICY = dict(horizon_len=16, batch_size=32768, act_class="DiagGaussianMLPPolicy", cri_class="MLPCritic",
                   eval_freq=20, update_times=4)
+# the equivariant agents' pair (the JAX package's _eq_presets); MP and EQSdata keep the plain nets
+_EQ_MODELS = dict(act_class="DiagGaussianEquivariantMLPPolicy", cri_class="MLPCriticEquivariant")
 
 
 def _algo_presets() -> dict[str, dict[str, Any]]:
@@ -137,6 +140,13 @@ def _algo_presets() -> dict[str, dict[str, Any]]:
         "iart": dict(_ON_POLICY, name="IART"),
         "ippoteam": dict(_ON_POLICY, name="IPPOTeam"),
         "ippoteam2": dict(_ON_POLICY, name="IPPOTeam2"),
+        "eq": dict(_ON_POLICY, name="EQ", **_EQ_MODELS),
+        "eqg": dict(_ON_POLICY, name="EQG", **_EQ_MODELS),
+        "eqs": dict(_ON_POLICY, name="EQS", **_EQ_MODELS),
+        "eqs4": dict(_ON_POLICY, name="EQS4", **_EQ_MODELS),
+        "mp": dict(_ON_POLICY, name="MP"),
+        "eqsc": dict(_ON_POLICY, name="EQSC", **_EQ_MODELS),
+        "eqsdata": dict(_ON_POLICY, name="EQSdata"),
     }
 
 

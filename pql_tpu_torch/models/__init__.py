@@ -1,5 +1,21 @@
-"""Model registry of the port (name → class, as ``algo.act_class`` / ``algo.cri_class`` name them)."""
+"""Model registry of the port (name → class, as ``algo.act_class`` / ``algo.cri_class`` name them).
 
+The plain MLPs and the equivariant tier of the JAX registry
+(pql_tpu/models/__init__.py:39-62); the diffusion, point-cloud and visual
+models are not ported yet. ``FiniteGroup``, ``GroupEquivariantLinear`` and
+``GroupEMLP`` are exported, not registered, as in the JAX package."""
+
+from pql_tpu_torch.models.emlp import (
+    EMLP,
+    DiagGaussianEquivariantMLPPolicy,
+    DoubleQEquivariant,
+    EquivariantMLPNet,
+    FiniteGroup,
+    GroupEMLP,
+    GroupEquivariantLinear,
+    MLPCriticEquivariant,
+    TanhEquivariantMLPPolicy,
+)
 from pql_tpu_torch.models.mlp import (
     DiagGaussianMLPPolicy,
     DistributionalDoubleQ,
@@ -20,6 +36,12 @@ MODEL_REGISTRY = {
     "DoubleQBatchNorm": DoubleQBatchNorm,
     "DistributionalDoubleQ": DistributionalDoubleQ,
     "MLPCritic": MLPCritic,
+    "EMLP": EMLP,
+    "EquivariantMLPNet": EquivariantMLPNet,
+    "TanhEquivariantMLPPolicy": TanhEquivariantMLPPolicy,
+    "DiagGaussianEquivariantMLPPolicy": DiagGaussianEquivariantMLPPolicy,
+    "MLPCriticEquivariant": MLPCriticEquivariant,
+    "DoubleQEquivariant": DoubleQEquivariant,
 }
 
 
@@ -30,4 +52,6 @@ def get_model(name: str):
 
 
 __all__ = ["MODEL_REGISTRY", "get_model", "MLPNet", "TanhMLPPolicy", "DiagGaussianMLPPolicy",
-           "TanhDiagGaussianMLPPolicy", "DoubleQ", "DoubleQBatchNorm", "DistributionalDoubleQ", "MLPCritic"]
+           "TanhDiagGaussianMLPPolicy", "DoubleQ", "DoubleQBatchNorm", "DistributionalDoubleQ", "MLPCritic", "EMLP",
+           "EquivariantMLPNet", "TanhEquivariantMLPPolicy", "DiagGaussianEquivariantMLPPolicy",
+           "MLPCriticEquivariant", "DoubleQEquivariant", "FiniteGroup", "GroupEquivariantLinear", "GroupEMLP"]

@@ -16,6 +16,8 @@ and ``train_baseline``, :260-314, chosen by ``algo.name`` as at :328-331).
     python -m pql_tpu_torch.train algo=iddpg task=BimanualReacher num_envs=4096 max_time=600
     python -m pql_tpu_torch.train algo=iart task=BimanualReacher num_envs=4096 max_time=600
         # or algo=qtotv1, qtotv2, ippoteam, ippoteam2
+    python -m pql_tpu_torch.train algo=eq task=BimanualReacher num_envs=4096 max_time=600
+        # or algo=eqs, eqg, eqsc, eqsdata, eqs4, mp
 
 A PQL run, as the JAX package's:
 
@@ -39,7 +41,8 @@ A PQL run, as the JAX package's:
   ``profile_iters`` iterations from iteration 2 on.
 
 A DDPG, SAC, CrossQ, IDDPG, PPO, IPPO, MAPPO, QTOTV1, QTOTV2, IART,
-IPPOTeam or IPPOTeam2 run (``train_baseline``), as the JAX package's: the
+IPPOTeam, IPPOTeam2, EQ, EQS, EQG, EQSC, EQSdata, EQS4 or MP run
+(``train_baseline``), as the JAX package's: the
 same start (artifact, full-state resume, else the warm-up of an agent that
 has one: the off-policy agents; the on-policy agents have none), then one
 ``train_iter`` per iteration until the stop check; every ``algo.log_freq``

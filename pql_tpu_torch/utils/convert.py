@@ -1,5 +1,5 @@
-"""Carry weights and PQL, DDPG, SAC, CrossQ, IDDPG, PPO, IPPO, MAPPO, QTOT and
-team-agent states from the JAX package into the port.
+"""Carry weights and PQL, DDPG, SAC, CrossQ, IDDPG, PPO, IPPO, MAPPO, QTOT,
+team-agent and equivariant-agent states from the JAX package into the port.
 
 Inputs are plain nested dicts of numpy arrays (no JAX object crosses), so
 this module imports nothing of JAX:
@@ -47,10 +47,13 @@ this module imports nothing of JAX:
   ``ma_state_from_jax(tree)`` converts an IPPO state, whose ``params`` and
   ``opts`` are dicts by network name (``actor``, ``critic``[,
   ``actor_left``, ``critic_left``]; QTOT's ``critic_tot``; the team
-  agents' networks) and which has ``value_rms_left`` too, and QTOT's
-  ``value_rms_tot`` (a tree without ``params`` goes to
-  ``ppo_state_from_jax``); ``load_ppo_state`` writes either into the port's
-  state.
+  agents' networks; EQS4's eight; EQSC's ``actor``, ``actor_left`` and
+  central ``critic``) and which has ``value_rms_left`` too (EQSC's state has
+  none), and QTOT's ``value_rms_tot`` (a tree without ``params`` goes to
+  ``ppo_state_from_jax``: PPO, MAPPO, EQG); ``load_ppo_state`` writes either
+  into the port's state. An EMLP's flax tree maps as ``EMLP_0`` → ``net``,
+  ``EquivariantLinear_i`` → ``layers.i`` and its invariant head
+  ``TorchLinear_0`` → ``head``.
 - ``snapshot_from_jax(tree, actor, critic)`` converts the ``{actor, critic,
   obs_rms}`` payload of the JAX ``save_model_snapshot`` (read from its orbax
   directory on the JAX side, as numpy; a two-agent agent's actor and critic
@@ -68,13 +71,18 @@ import numpy as np
 import torch
 
 
-def _module_name(flax_name: str) -> str:
-    if flax_name == "MLPNet_0":
+def _module_name(flax_name: str, siblings=()) -> str:
+    """The port's submodule name of a flax module; ``siblings``, the other
+    names of its level, tell an EMLP's invariant head (``TorchLinear_0``
+    beside ``EquivariantLinear_i``: ``head``) from an MLP's layer."""
+    if flax_name in ("MLPNet_0", "EMLP_0"):
         return "net"
-    m = re.fullmatch(r"(TorchLinear|BatchNorm)_(\d+)", flax_name)
-    if m:
-        return f"{'layers' if m.group(1) == 'TorchLinear' else 'norms'}.{m.group(2)}"
-    return flax_name
+    m = re.fullmatch(r"(TorchLinear|BatchNorm|EquivariantLinear|GroupEquivariantLinear)_(\d+)", flax_name)
+    if not m:
+        return flax_name
+    if m.group(1) == "TorchLinear" and any("EquivariantLinear" in s for s in siblings):
+        return "head"
+    return f"{'norms' if m.group(1) == 'BatchNorm' else 'layers'}.{m.group(2)}"
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
@@ -88,7 +96,7 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
             if key == "params":  # a nested tree of params by network name (a two-agent snapshot)
                 walk(val, prefix)
             elif isinstance(val, dict):
-                walk(val, prefix + [_module_name(key)])
+                walk(val, prefix + [_module_name(key, node)])
             elif key == "kernel":
                 out[".".join(prefix + ["weight"])] = torch.from_numpy(np.array(np.asarray(val).T))
             elif key in ("bias", "scale", "mean", "var", "logstd"):
@@ -293,13 +301,14 @@ def ppo_state_from_jax(tree: dict) -> dict:
 
 
 def ma_state_from_jax(tree: dict) -> dict:
-    """A whole JAX IPPO state (or, without ``params``, a MAPPO one) → port tensors."""
+    """A whole JAX IPPO, QTOT, team-agent, EQ-family or EQSC state (or,
+    without ``params``, a MAPPO one) → port tensors."""
     if "params" not in tree:
         return ppo_state_from_jax(tree)
-    out = dict(**_nets_from_jax(tree), value_rms_left=_rms_from_jax(tree["value_rms_left"]),
-               **_onpolicy_parts_from_jax(tree))
-    if tree.get("value_rms_tot") is not None:
-        out["value_rms_tot"] = _rms_from_jax(tree["value_rms_tot"])
+    out = dict(**_nets_from_jax(tree), **_onpolicy_parts_from_jax(tree))
+    for name in ("value_rms_left", "value_rms_tot"):
+        if tree.get(name) is not None:
+            out[name] = _rms_from_jax(tree[name])
     return out
 
 
@@ -411,7 +420,8 @@ def load_iddpg_state(state, conv: dict) -> None:
 @torch.no_grad()
 def load_ppo_state(state, conv: dict) -> None:
     """Write a ``ppo_state_from_jax`` or ``ma_state_from_jax`` conversion into
-    a port PPOState or IPPOState (IPPO, QTOT, the team agents) in place."""
+    a port PPOState, IPPOState (IPPO, QTOT, the team agents, the EQ family)
+    or EQSCState in place."""
     if "nets" in conv:
         _load_nets(state, conv)
     else:

@@ -307,11 +307,12 @@ def test_episode_stats_match_jax():
         EpisodeStats(E, L, info_keys=("a",), info_modes=("every",), device="cpu")
 
 
-@pytest.mark.parametrize("name", ["EQSD", "EQS", "EQ", "DDPGV"])
+@pytest.mark.parametrize("name", ["EQSD", "EQSD2", "PPOV", "DDPGV"])
 def test_get_algo_refuses_unported(name):
-    with pytest.raises(NotImplementedError, match=r"not ported yet; ported: \['CrossQ', 'DDPG', 'IART', 'IDDPG', "
-                                                  r"'IPPO', 'IPPOTeam', 'IPPOTeam2', 'MAPPO', 'PPO', 'PQL', 'QTOTV1', "
-                                                  r"'QTOTV2', 'SAC'\]"):
+    with pytest.raises(NotImplementedError, match=r"not ported yet; ported: \['CrossQ', 'DDPG', 'EQ', 'EQG', 'EQS', "
+                                                  r"'EQS4', 'EQSC', 'EQSdata', 'IART', 'IDDPG', 'IPPO', 'IPPOTeam', "
+                                                  r"'IPPOTeam2', 'MAPPO', 'MP', 'PPO', 'PQL', 'QTOTV1', 'QTOTV2', "
+                                                  r"'SAC'\]"):
         get_algo(name)
 
 

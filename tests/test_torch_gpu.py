@@ -18,6 +18,7 @@ from hypothesis import strategies as st
 from chip_smoke import (
     BASELINE_ALGOS,
     C51_CASES,
+    EQ_CLASSES,
     DDPG_THRESHOLD,
     FRANKA_MAX_FLIPS,
     HAND_MAX_FLIPS,
@@ -29,6 +30,9 @@ from chip_smoke import (
     baseline_reference,
     c51_logit_scale,
     envs_beyond_tol,
+    eq_layer_check,
+    eq_reference,
+    equivariance_errors,
     learning_gate_return,
     ppo_reference,
     state_diffs,
@@ -511,6 +515,61 @@ def test_iddpg_iterates_and_resumes_bitwise_on_card(cuda, tmp_path, task):
         assert all(bool(torch.isfinite(v)) for v in m.values()), m
     assert (s.update_count, s.env_steps, s.replay.total_writes) == (24, (8 + 3) * E, 8 + 3)
     assert s.replay.field("reward").shape[-1] == 2 and s.replay.data.device.type == "cuda"
+    agent2 = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s2 = checkpoint.load_checkpoint(str(tmp_path / "state"), agent2.init(seed=7))
+    for _ in range(2):
+        s2, _ = agent2.train_iter(s2)
+    assert state_diffs(s, s2) == []
+
+
+EQ_AGENTS = [("eq", "BimanualReacher", {}), ("eqs", "BimanualReacher", {}), ("eqg", "BimanualReacher", {}),
+             ("eqsc", "BimanualReacherSym", dict(algo__value_norm=True)), ("eqsdata", "BimanualReacher", {}),
+             ("eqs4", "BimanualReacherSym", {}), ("mp", "BimanualReacher", {}),
+             ("ippoteam", "BimanualReacher", EQ_CLASSES), ("iart", "BimanualReacherSym", EQ_CLASSES)]
+
+
+@pytest.mark.gpu
+def test_equivariant_layers_on_card_match_cpu(cuda):
+    """chip_smoke's eq_layer_check: the EMLP layers at full width and
+    GroupEMLP on C4 and D4, card vs CPU and equivariant on the card (it
+    raises beyond 1e-5)."""
+    assert len(eq_layer_check(cuda)) == 8
+
+
+@pytest.mark.gpu
+def test_eq_tier_on_card_matches_cpu(cuda):
+    """chip_smoke's eq_reference: two iterations of the seven EQ agents and
+    of IPPOTeam and IART with the equivariant classes, card vs CPU, then the
+    trained networks' equivariance on the card."""
+    assert len(eq_reference(cuda)["runs"]) == 9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo,task,extra", EQ_AGENTS, ids=lambda x: x if isinstance(x, str) else "")
+def test_eq_agents_iterate_on_card(cuda, algo, task, extra):
+    """Three iterations on the card at a small size (EMLP at full width):
+    epochs x minibatches updates (EQSdata: twice the rows), finite losses,
+    and every equivariant network still equivariant within 1e-5."""
+    E = 64
+    cfg = make_config(algo, task=task, num_envs=E, algo__horizon_len=8, algo__batch_size=128, **extra)
+    agent = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s = agent.init(seed=0)
+    for _ in range(3):
+        s, m = agent.train_iter(s)
+        assert all(bool(torch.isfinite(v)) for v in m.values()), m
+    assert (s.update_count, s.env_steps) == (3 * 4 * agent.rows // 128, 3 * 8 * E)
+    equivariance_errors(agent, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["eqsc", "eqs4", "eqsdata"])
+def test_eq_kill_and_resume_bitwise_on_card(cuda, tmp_path, algo):
+    cfg = make_config(algo, task="BimanualReacherSym", num_envs=64, algo__horizon_len=8, algo__batch_size=128)
+    agent = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s, _ = agent.train_iter(agent.init(seed=0))
+    checkpoint.save_checkpoint(str(tmp_path / "state"), s)
+    for _ in range(2):
+        s, _ = agent.train_iter(s)
     agent2 = get_algo(cfg.algo.name)(cfg, device=cuda)
     s2 = checkpoint.load_checkpoint(str(tmp_path / "state"), agent2.init(seed=7))
     for _ in range(2):

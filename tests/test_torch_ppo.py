@@ -78,13 +78,14 @@ def rms_tree(r) -> dict:
 
 def onpolicy_tree(s) -> dict:
     """The numpy tree ``ppo_state_from_jax`` / ``ma_state_from_jax`` take,
-    from a numpy JAX PPO, MAPPO or IPPO state."""
+    from a numpy JAX PPO, MAPPO, IPPO or EQSC state."""
     tree = dict(obs_rms=rms_tree(s.obs_rms), value_rms=rms_tree(s.value_rms),
                 env_state=dict(state=dict(s.env_state.state), time=s.env_state.time), obs=s.obs, dones=s.dones,
                 stats=stats_tree(s.stats), env_steps=s.env_steps, update_count=s.update_count)
     if hasattr(s, "params"):
-        tree.update(params=s.params, opts={k: opt_tree(o) for k, o in s.opts.items()},
-                    value_rms_left=rms_tree(s.value_rms_left))
+        tree.update(params=s.params, opts={k: opt_tree(o) for k, o in s.opts.items()})
+        if hasattr(s, "value_rms_left"):  # EQSC's state has one value-rms
+            tree["value_rms_left"] = rms_tree(s.value_rms_left)
     else:
         tree.update(actor_params=s.actor_params, critic_params=s.critic_params, actor_opt=opt_tree(s.actor_opt),
                     critic_opt=opt_tree(s.critic_opt))

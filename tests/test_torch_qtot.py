@@ -62,7 +62,7 @@ def onpolicy_draws(jagent, cfg, rng, n_keys: int, normals, rows: int) -> dict:
 def ma_tree(s) -> dict:
     """``onpolicy_tree`` of a two-agent JAX state, with QTOT's ``value_rms_tot``."""
     tree = onpolicy_tree(s)
-    if s.value_rms_tot is not None:
+    if getattr(s, "value_rms_tot", None) is not None:  # EQSC's state has none
         tree["value_rms_tot"] = rms_tree(s.value_rms_tot)
     return tree
 

@@ -9,8 +9,8 @@
   a horizon of 8: every network, the losses, obs-rms, obs, dones, episode
   statistics and counters;
 - ``value_norm`` is ignored: a run with it on is bitwise the run with it off;
-- the eval hooks; the odd-``num_envs`` and equivariant-``act_class``
-  refusals; kill and resume bitwise; the entry point with IART; a JAX
+- the eval hooks; the odd-``num_envs`` refusal and that of an equivariant
+  ``act_class`` on a task without an ``EquivarianceSpec``; kill and resume bitwise; the entry point with IART; a JAX
   snapshot of IPPOTeam into the port;
 - no module of the port imports JAX, flax, optax or the JAX package.
 
@@ -34,6 +34,7 @@ from pql_tpu.utils import checkpoint as jckpt
 from pql_tpu_torch import train
 from pql_tpu_torch.algos import get_algo
 from pql_tpu_torch.cfg import make_config
+from pql_tpu_torch.envs.bimanual import BimanualReacher
 from pql_tpu_torch.utils import checkpoint
 from pql_tpu_torch.utils.convert import load_ppo_state, ma_state_from_jax, snapshot_from_jax
 from pql_tpu_torch.utils.logging import RunLogger
@@ -154,10 +155,14 @@ def test_odd_num_envs_is_refused(algo):
 
 
 @pytest.mark.parametrize("algo", sorted(NAMES))
-def test_equivariant_act_class_is_refused(algo):
+def test_equivariant_act_class_is_refused(algo, monkeypatch):
+    """An equivariant ``act_class`` needs the task's reps: on a task without
+    an ``EquivarianceSpec`` the agent is refused (the equivariant team agents
+    themselves: tests/test_torch_eq_streams.py)."""
+    monkeypatch.setattr(BimanualReacher, "equivariance", None)
     cfg = make_config(algo, task="BimanualReacher", **SMALL, algo__act_class="DiagGaussianEquivariantMLPPolicy")
-    with pytest.raises(NotImplementedError, match="equivariant tier"):
-        get_algo(NAMES[algo])(cfg, device="cpu")
+    with pytest.raises(ValueError, match="no EquivarianceSpec"):
+        get_algo(NAMES[algo])(cfg, device="cpu").init()
 
 
 @pytest.mark.parametrize("algo", sorted(NAMES))
