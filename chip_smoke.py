@@ -134,13 +134,31 @@ line each:
 31. eq_entry_path — ``train.main algo=eqs4 task=BimanualReacher
    num_envs=4096`` through ppo_entry_path: an eval and a checkpoint at
    iteration 4, the best model, resumed to 6 bitwise equal to an
-   uninterrupted run, the checkpoint's bytes and save and load seconds.
+   uninterrupted run, the checkpoint's bytes and save and load seconds;
+32. eqsd_reference — two iterations of EQSD with each of its four team
+   actors (diffusion or Gaussian, equivariant or plain) and of EQSD2
+   (equivariant and plain), networks at full width, card vs CPU
+   (``card_vs_cpu``), then each trained equivariant network, the diffusion
+   team's ε-field and sampler among them, within 1e-5·(1 + |f|) of exact
+   equivariance on the card; both diffusion policies' DDPM samplers at 4096
+   rows card vs CPU from the same draws within 1e-5·(1 + |a|), with the ms
+   of one sample;
+33. eqsd_main_path — EQSD (equivariant Gaussian, equivariant diffusion and
+   plain diffusion teams) and EQSD2 (equivariant and plain) on
+   BimanualReacher @4096 at the presets (horizon 16, batch 32768, 4 epochs,
+   diffusion_iter 5, fp32), as two_agent_main_path with a profiled window
+   on the equivariant diffusion team only, and the equivariance check above
+   at full width;
+34. eqsd_entry_path — ``train.main algo=eqsd algo.diffusion=true
+   task=BimanualReacher num_envs=4096`` through ppo_entry_path: an eval and
+   a checkpoint at iteration 4, resumed to 6 bitwise equal to an
+   uninterrupted run.
 
 ``--entry`` runs ``ENTRY_RUNS`` instead: PPO Ant and IPPO through
 ppo_entry_path, IDDPG at its full preset (ring 5e6) through
 baseline_entry_path.
 
-Each main path, and each of phases 11, 12, 14, 16-18 and 20-31, resets the
+Each main path, and each of phases 11, 12, 14, 16-18 and 20-34, resets the
 kernels' launch counts just before it drives the port and reads them just
 after (0 ``c51_td_target`` launches on every on-policy path). Then the ``{"kernels": [...]}`` line, the nvidia-smi
 line, and last
@@ -308,6 +326,34 @@ EQ_PATHS = [((f"algo={a}", "task=BimanualReacher", "num_envs=4096"), (1, 1, 3, i
       "algo.cri_class=MLPCriticEquivariant"), (1, 1, 3, 0))]
 EQ_ENTRY_ARGV = ("algo=eqs4", "task=BimanualReacher", "num_envs=4096")
 EQ_ENTRY_ITERS = (4, 6)  # an eval and a checkpoint at 4, resumed to 6
+# the diffusion tier: small card-vs-CPU runs of EQSD with each of its four
+# team actors and of EQSD2 (equivariant and plain; networks at full width:
+# the equivariant diffusion net an EMLP 512 x 5 on 256 + 24 + 4 inputs, the
+# plain one a [1024, 512, 256] Mish trunk), the DDPM sampler at 4096 rows,
+# then the full-width paths at the presets (horizon 16, batch 32768, 4
+# epochs, diffusion_iter 5) @4096 as (argv, depth), a profiled window on the
+# equivariant diffusion team only; the entry point with it. The reference
+# runs take seed 0: at the default seed (42) EQSD with the equivariant
+# diffusion team crosses a PPO clip boundary within rounding in its second
+# iteration, so a 1e-7 relative change of its initial weights moves the right
+# critic's step by 1.3% of its norm on the CPU alone; at seed 0 no step of
+# the six moves by more than 2e-4 under such a change
+# (tools/diffusion_conditioning.py)
+PLAIN_ARGV = ("algo.act_class=DiagGaussianMLPPolicy", "algo.cri_class=MLPCritic")
+PLAIN_CLASSES = dict(algo__act_class="DiagGaussianMLPPolicy", algo__cri_class="MLPCritic")
+EQSD_REF = [(a, dict(PPO_REF_SIZE, task="BimanualReacher", seed=0, **extra))
+            for a, extra in (("eqsd", {}), ("eqsd", dict(algo__diffusion=True)),
+                             ("eqsd", dict(algo__diffusion=True, **PLAIN_CLASSES)), ("eqsd", PLAIN_CLASSES),
+                             ("eqsd2", {}), ("eqsd2", PLAIN_CLASSES))]
+SAMPLE_ROWS = 4096
+SAMPLE_REPS = 5  # timed sampler calls after one untimed
+EQSD_ARGV = ("algo=eqsd", "task=BimanualReacher", "num_envs=4096")
+EQSD_PATHS = [(EQSD_ARGV, (1, 1, 3, 0)), (EQSD_ARGV + ("algo.diffusion=true",), (1, 1, 3, 1)),
+              (EQSD_ARGV + ("algo.diffusion=true",) + PLAIN_ARGV, (1, 1, 3, 0)),
+              (("algo=eqsd2", "task=BimanualReacher", "num_envs=4096"), (1, 1, 3, 0)),
+              (("algo=eqsd2", "task=BimanualReacher", "num_envs=4096") + PLAIN_ARGV, (1, 1, 3, 0))]
+EQSD_ENTRY_ARGV = EQSD_ARGV + ("algo.diffusion=true",)
+EQSD_ENTRY_ITERS = (4, 6)  # an eval and a checkpoint at 4, resumed to 6
 PPO_ENTRY_ARGV = ("algo=ppo", "task=Cartpole")  # 4096 envs, horizon 16, batch 32768, 4 epochs
 PPO_ENTRY_ITERS = (8, 12)  # the first run stops after 8 iterations, the resumed one after 12
 PPO_ENTRY_EVAL_FREQ = 4
@@ -1615,7 +1661,9 @@ def card_vs_cpu(dev, refs, after=None) -> dict:
             run["replay_max_abs_err"] = err
         if after is not None:
             run.update(after(agents[dev], states[dev]))
-        out[f"{algo} {kwargs['task']}" + (" same_policy" if "algo__same_policy" in kwargs else "")] = run
+        out[f"{algo} {kwargs['task']}" + (" same_policy" if "algo__same_policy" in kwargs else "")
+            + (" diffusion" if kwargs.get("algo__diffusion") else "")
+            + (f" {kwargs['algo__act_class']}" if "algo__act_class" in kwargs else "")] = run
     return out
 
 
@@ -1922,13 +1970,15 @@ def eq_nets(agent, state) -> dict:
     import torch
     from pql_tpu_torch.models.emlp import EMLP, GroupEquivariantLinear
 
+    from pql_tpu_torch.models.diffusion import DDPMPolicy
+
     ma = agent.ma
     rep = lambda g: torch.tensor(g, dtype=torch.float32, device=agent.device)  # noqa: E731
     g_act = rep(ma.act_gen())
     nets = state.nets if hasattr(state, "nets") else {"actor": state.actor, "critic": state.critic}
     out = {}
     for name, m in nets.items():
-        if not any(isinstance(x, EMLP) for x in m.modules()):
+        if not any(isinstance(x, EMLP) for x in m.modules()) or isinstance(m, DDPMPolicy):
             continue
         first = next(x for x in m.modules() if isinstance(x, GroupEquivariantLinear))
         central = first.weight.shape[1] == ma.shared_obs_dim
@@ -1938,12 +1988,39 @@ def eq_nets(agent, state) -> dict:
     return out
 
 
+def diffusion_errors(policy, g_obs, g_act, gen, rows: int = 4096) -> dict:
+    """The equivariance errors of an ``EquivariantDiffusionPolicy`` on
+    ``rows`` standard-normal inputs: its ε-field, |ε̂(x·G_act, t, c·G_obs) −
+    ε̂(x, t, c)·G_act|, at timesteps drawn from [0, T), and its sampler,
+    |a(c·G_obs, x_T·G_act, noise·G_act) − a(c, x_T, noise)·G_act|, each
+    relative to 1 + its largest output."""
+    import torch
+
+    from pql_tpu_torch.ops.ddpm import draw_sample
+
+    dev, d, T = g_act.device, g_act.shape[0], policy.sched.num_timesteps
+    x = torch.randn(rows, d, generator=gen, device=dev)
+    obs = torch.randn(rows, g_obs.shape[0], generator=gen, device=dev)
+    t = torch.randint(0, T, (rows,), generator=gen, device=dev).float()
+    x_T, noise = draw_sample(gen, rows, d, T)
+    with torch.no_grad():
+        eps, eps_g = policy.net(x, t, obs), policy.net(x @ g_act, t, obs @ g_obs)
+        act, act_g = policy.get_actions(obs, x_T, noise), policy.get_actions(obs @ g_obs, x_T @ g_act, noise @ g_act)
+    rel = lambda y, y_g: float((y_g - y @ g_act).abs().max()) / (1.0 + float(y.abs().max()))  # noqa: E731
+    return {"eps": rel(eps, eps_g), "sampler": rel(act, act_g)}
+
+
 def equivariance_errors(agent, state, rows: int = 4096) -> dict:
     """|f(x·G_in) − f(x)·G_out|_max / (1 + |f(x)|_max) of each equivariant
     network of the state (``eq_nets``; an actor's mean, G_out = I for a
-    critic) on ``rows`` standard-normal inputs on its device; each within
-    ``EQ_TOL``."""
+    critic) on ``rows`` standard-normal inputs on its device, and an
+    equivariant diffusion team's ε-field and sampler (``diffusion_errors``,
+    on the joint reps); each within ``EQ_TOL``. An agent whose act_class or
+    cri_class is equivariant has at least one such network, and no other
+    agent has one."""
     import torch
+
+    from pql_tpu_torch.models.ediffusion import EquivariantDiffusionPolicy
 
     gen = torch.Generator(device=agent.device).manual_seed(0)
     errs = {}
@@ -1954,8 +2031,18 @@ def equivariance_errors(agent, state, rows: int = 4096) -> dict:
         y, y_g = (y[0], y_g[0]) if isinstance(y, tuple) else (y, y_g)
         want = y if g_out is None else y @ g_out
         errs[name] = float((y_g - want).abs().max()) / (1.0 + float(y.abs().max()))
-        check(errs[name] <= EQ_TOL, f"{agent.name} {name}: equivariance error {errs[name]:.3g} > {EQ_TOL}")
-    check(bool(errs) == (agent.name not in ("EQSdata", "MP")), f"{agent.name}: equivariant networks {sorted(errs)}")
+    nets = state.nets if hasattr(state, "nets") else {}
+    for name, m in nets.items():
+        if isinstance(m, EquivariantDiffusionPolicy):
+            rep = lambda g: torch.tensor(g, dtype=torch.float32, device=agent.device)  # noqa: E731
+            g_act = rep(agent.ma.act_gen())
+            d_errs = diffusion_errors(m, rep(agent.ma.joint_obs_gen()), torch.block_diag(g_act, g_act), gen, rows)
+            errs.update({f"{name} {k}": v for k, v in d_errs.items()})
+    for name, err in errs.items():
+        check(err <= EQ_TOL, f"{agent.name} {name}: equivariance error {err:.3g} > {EQ_TOL}")
+    algo = agent.cfg.algo
+    check(bool(errs) == any("Equivariant" in c for c in (algo.act_class, algo.cri_class)),
+          f"{agent.name}: equivariant networks {sorted(errs)}")
     return dict(equivariance_err=errs)
 
 
@@ -2036,6 +2123,91 @@ def eq_main_path(dev, smi: str) -> dict:
     out = onpolicy_paths(dev, smi, EQ_PATHS, after=equivariance_errors)
     _check_sym_share(out["runs"])
     return out
+
+
+def sampler_check(dev) -> dict:
+    """The DDPM sampler of both diffusion policies at full width on
+    BimanualReacher's joint reps (``EquivariantDiffusionPolicy``: EMLP 512 x
+    5; ``StateDiffusionPolicy``: the [1024, 512, 256] trunk), as an agent
+    builds them from a seed: ``SAMPLE_ROWS`` rows on the card and on the CPU
+    from the same obs, x_T and step noise within ``EQ_TOL``·(1 + |a|); the
+    equivariant policy's ε-field and sampler equivariant on the card
+    (``diffusion_errors``); the card's ms per sample (CUDA events around
+    ``SAMPLE_REPS`` calls after one untimed), with the card's name and power
+    limit beside it in the phase's line. (The step at t = T−1 divides by
+    √ᾱ ≈ 0.0097, so the sampler's fp32 error grows with |ε̂|: weights moved
+    by N(0, 0.05²), |ε̂| ~ 1, put the CPU's own fp32 result 5e-5 from its
+    float64 one.)"""
+    import copy
+
+    import torch
+    from pql_tpu_torch.algos.ma_base import MultiAgentCtx
+    from pql_tpu_torch.cfg import make_config
+    from pql_tpu_torch.envs import make_env
+    from pql_tpu_torch.models.diffusion import StateDiffusionPolicy
+    from pql_tpu_torch.models.ediffusion import EquivariantDiffusionPolicy
+    from pql_tpu_torch.models.emlp import concat_reps
+    from pql_tpu_torch.ops.ddpm import draw_sample
+
+    ma = MultiAgentCtx(make_env(make_config("eqsd", task="BimanualReacher", num_envs=2)))
+    g_obs, g_act = ma.joint_obs_gen(), concat_reps(ma.act_gen(), ma.act_gen())
+    gen = torch.Generator().manual_seed(0)
+    policies = {"EquivariantDiffusionPolicy": EquivariantDiffusionPolicy(g_obs, g_act, gen=gen),
+                "StateDiffusionPolicy": StateDiffusionPolicy(24, 4, gen=gen)}
+    out = {}
+    for name, pol in policies.items():
+        obs = torch.randn(SAMPLE_ROWS, 24, generator=gen)
+        x_T, noise = draw_sample(gen, SAMPLE_ROWS, 4, pol.sched.num_timesteps)
+        card = copy.deepcopy(pol).to(dev)
+        args = (obs.to(dev), x_T.to(dev), noise.to(dev))
+        with torch.no_grad():
+            want, got = pol.get_actions(obs, x_T, noise), card.get_actions(*args).cpu()
+            err = float((got - want).abs().max()) / (1.0 + float(want.abs().max()))
+            check(err <= EQ_TOL, f"{name}: sampler card vs CPU {err:.3g}")
+            card.get_actions(*args)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(SAMPLE_REPS):
+                card.get_actions(*args)
+            end.record()
+            torch.cuda.synchronize()
+        out[name] = dict(card_vs_cpu_rel_err=err, sample_ms=start.elapsed_time(end) / SAMPLE_REPS,
+                         rows=SAMPLE_ROWS, steps=pol.sched.num_timesteps)
+        if isinstance(pol, EquivariantDiffusionPolicy):
+            rep = lambda g: torch.tensor(g, dtype=torch.float32, device=dev)  # noqa: E731
+            errs = diffusion_errors(card, rep(g_obs), rep(g_act), torch.Generator(device=dev).manual_seed(1))
+            for k, v in errs.items():
+                check(v <= EQ_TOL, f"{name}: {k} equivariance error on the card {v:.3g}")
+            out[name]["equivariance_err"] = errs
+    return out
+
+
+def eqsd_reference(dev, smi: str) -> dict:
+    """Two iterations of EQSD with each of its four team actors and of EQSD2
+    (equivariant and plain) at a small size (networks at full width) on the
+    card and on the CPU (``card_vs_cpu``), then each trained equivariant
+    network's equivariance on the card, the diffusion team's ε-field and
+    sampler among them (``equivariance_errors``); the sampler card vs CPU at
+    ``SAMPLE_ROWS`` rows (``sampler_check``); the kernels' launch counts are
+    reset before and read after."""
+    from pql_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    runs = card_vs_cpu(dev, EQSD_REF, after=equivariance_errors)
+    sampler = sampler_check(dev)
+    return dict(config=[f"{a} {k}" for a, k in EQSD_REF], iterations=2, card=smi, runs=runs, sampler=sampler,
+                launches=dict(kernels.LAUNCHES))
+
+
+def eqsd_main_path(dev, smi: str) -> dict:
+    """EQSD with the equivariant Gaussian, the equivariant diffusion and the
+    plain diffusion team, and EQSD2 equivariant and plain, on
+    BimanualReacher @4096 at the presets (horizon 16, batch 32768, 4 epochs,
+    diffusion_iter 5, fp32: EQSD 2 minibatches of the H·E rows, EQSD2 1 of
+    the H·E/2), as ``two_agent_main_path`` with a profiled window on the
+    equivariant diffusion team only, and every trained equivariant network's
+    equivariance on the card at full width (``equivariance_errors``)."""
+    return onpolicy_paths(dev, smi, EQSD_PATHS, after=equivariance_errors)
 
 
 def main(argv: list[str]) -> int:
@@ -2133,6 +2305,12 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="eq_main_path", wall_s=s, **emain))
     eentry, s = timed(ppo_entry_path, dev, smi, EQ_ENTRY_ARGV, EQ_ENTRY_ITERS)
     emit(dict(phase="eq_entry_path", wall_s=s, **eentry))
+    dref, s = timed(eqsd_reference, dev, smi)
+    emit(dict(phase="eqsd_reference", wall_s=s, **dref))
+    dmain, s = timed(eqsd_main_path, dev, smi)
+    emit(dict(phase="eqsd_main_path", wall_s=s, **dmain))
+    dentry, s = timed(ppo_entry_path, dev, smi, EQSD_ENTRY_ARGV, EQSD_ENTRY_ITERS)
+    emit(dict(phase="eqsd_entry_path", wall_s=s, **dentry))
 
     by_path = {"pql_d Cartpole@4096": main["launches"], "pql_d AllegroHand@16384": allegro_d["launches"],
                "pql_d Cartpole@4096 entry point": entry["launches"],
@@ -2150,7 +2328,10 @@ def main(argv: list[str]) -> int:
                "algo=iddpg BimanualReacher@4096 entry point": ientry["launches"],
                "equivariant card-vs-CPU reference runs": eref["launches"],
                **{f"{name} (equivariant)": r["launches"] for name, r in emain["runs"].items()},
-               "algo=eqs4 BimanualReacher@4096 entry point": eentry["launches"]}
+               "algo=eqs4 BimanualReacher@4096 entry point": eentry["launches"],
+               "diffusion-tier card-vs-CPU reference runs": dref["launches"],
+               **{f"{name} (diffusion tier)": r["launches"] for name, r in dmain["runs"].items()},
+               "algo=eqsd algo.diffusion=true BimanualReacher@4096 entry point": dentry["launches"]}
     emit({"kernels": [
         dict(name=c["name"], route="cuda", source=kernels.KERNELS[c["name"]]["source"],
              replaces=kernels.KERNELS[c["name"]]["replaces"],

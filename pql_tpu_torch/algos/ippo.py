@@ -62,11 +62,14 @@ class IPPO(ma_base.NetsDictAgent, PPO):
         return kind if self.same_policy else f"{kind}_left"
 
     def _models(self, g: torch.Generator) -> dict:
+        return self._build(self._nets(g))
+
+    def _nets(self, g: torch.Generator) -> dict:
         cfg, ma = self.cfg, self.ma
         nets = {"actor": ma.make_actor(cfg, g, 0), "critic": ma.make_critic(cfg, g, 0)}
         if not self.same_policy:
             nets.update(actor_left=ma.make_actor(cfg, g, 1), critic_left=ma.make_critic(cfg, g, 1))
-        return self._build(nets)
+        return nets
 
     def _state_cls(self):
         return IPPOState
@@ -133,15 +136,16 @@ class IPPO(ma_base.NetsDictAgent, PPO):
         losses, then one of the critic; else a step of each of the four
         networks on its own loss, in the order actor, critic, actor_left,
         critic_left."""
+        return self._step_all(state, self._minibatch_losses(state, batch))
+
+    def _minibatch_losses(self, state, batch: tuple) -> dict:
         nets = state.nets
-        (ob_r, *rest_r), (ob_l, *rest_l) = batch[:6], batch[6:]
+        (ob_r, *rest_r), (ob_l, *rest_l) = batch[:6], batch[6:12]
         a_r, c_r = self._losses(nets["actor"], nets["critic"], ob_r, ob_r, *rest_r)
         a_l, c_l = self._losses(nets[self._left("actor")], nets[self._left("critic")], ob_l, ob_l, *rest_l)
         if self.same_policy:
-            losses = {"actor": a_r + a_l, "critic": c_r + c_l}
-        else:
-            losses = {"actor": a_r, "critic": c_r, "actor_left": a_l, "critic_left": c_l}
-        return self._step_all(state, losses)
+            return {"actor": a_r + a_l, "critic": c_r + c_l}
+        return {"actor": a_r, "critic": c_r, "actor_left": a_l, "critic_left": c_l}
 
     # ------------------------------------------------------------ eval hook
 

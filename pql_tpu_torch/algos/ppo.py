@@ -162,13 +162,21 @@ class PPO(base.ActorCriticAgent):
         traj = self._rollout(state, draws)
         data = self._advantages(state, traj)
         losses: dict[str, list] = {}
-        for perm in draws["perm"]:
+        first_update = state.update_count
+        for e, perm in enumerate(draws["perm"]):
             mb = ma_base.epoch_minibatches(perm, data, self.cfg.algo.batch_size)
             for m in range(mb[0].shape[0]):
-                for k, v in self._minibatch_update(state, tuple(x[m] for x in mb)).items():
+                batch = tuple(x[m] for x in mb) + self._minibatch_extra(draws, first_update, e, m)
+                for k, v in self._minibatch_update(state, batch).items():
                     losses.setdefault(k, []).append(v)
                 state.update_count += 1
         return state, {**ma_base.loss_metrics(losses), **state.stats.metrics()}
+
+    def _minibatch_extra(self, draws: dict, first_update: int, epoch: int, index: int) -> tuple:
+        """Inputs of minibatch ``index`` of ``epoch`` beside its rows, appended
+        to the batch (EQSD's team draws, EQSD2's KL weight at the iteration's
+        ``first_update``); none here."""
+        return ()
 
     # -------------------------------------------------------------- rollout
 

@@ -95,6 +95,23 @@ class _SplitPopBase(ma_base.NetsDictAgent, PPO):
         return obs_n, self.ma.split_obs(obs_n, self.env.symmetry_tracker(state.env_state))
 
 
+def equivariant_team(cfg, ma: ma_base.MultiAgentCtx) -> bool:
+    """A joint team network is equivariant with an ``Equivariant`` act_class
+    on a task with an ``EquivarianceSpec``."""
+    return "Equivariant" in cfg.algo.act_class and ma.eq is not None
+
+
+def joint_gaussian_actor(cfg, ma: ma_base.MultiAgentCtx, gen: torch.Generator, obs_dim: int):
+    """A Gaussian actor on a joint obs of ``obs_dim`` with action dim 2a:
+    equivariant on joint_obs_gen → act_gen ⊕ act_gen when
+    ``equivariant_team``, else ``DiagGaussianMLPPolicy``."""
+    dtype = base.compute_dtype(cfg)
+    if equivariant_team(cfg, ma):
+        return get_model("DiagGaussianEquivariantMLPPolicy")(
+            gen_in=ma.joint_obs_gen(), gen_out=concat_reps(ma.act_gen(), ma.act_gen()), gen=gen, dtype=dtype)
+    return get_model("DiagGaussianMLPPolicy")(obs_dim, 2 * ma.action_dim, gen=gen, dtype=dtype)
+
+
 def _value(nets: nn.ModuleDict, name: str, obs: torch.Tensor) -> torch.Tensor:
     return nets[name](obs)[..., 0]
 
@@ -216,19 +233,9 @@ class IPPOTeam(_SplitPopBase):
         cfg, ma = self.cfg, self.ma
         nets = {"actor": ma.make_actor(cfg, g, 0), "actor_left": ma.make_actor(cfg, g, 1),
                 "critic": ma.make_critic(cfg, g, 0), "critic_left": ma.make_critic(cfg, g, 1),
-                "actor_team": self._team_actor(g),
+                "actor_team": joint_gaussian_actor(cfg, ma, g, self.obs_dim),  # on the whole obs (teams.py:354-360)
                 "critic_tot": ma.make_critic(cfg, g, central=True), "critic_team": ma.make_critic(cfg, g, central=True)}
         return self._build(nets)
-
-    def _team_actor(self, g: torch.Generator):
-        """The joint Gaussian actor on the whole obs (action dim 2a): with an
-        ``Equivariant`` act_class on a task with an ``EquivarianceSpec``, an
-        equivariant one on joint_obs_gen → act_gen ⊕ act_gen (teams.py:354-360)."""
-        ma, dtype = self.ma, base.compute_dtype(self.cfg)
-        if "Equivariant" in self.cfg.algo.act_class and ma.eq is not None:
-            return get_model("DiagGaussianEquivariantMLPPolicy")(
-                gen_in=ma.joint_obs_gen(), gen_out=concat_reps(ma.act_gen(), ma.act_gen()), gen=g, dtype=dtype)
-        return get_model("DiagGaussianMLPPolicy")(self.obs_dim, 2 * ma.action_dim, gen=g, dtype=dtype)
 
     def _action_normals(self, gen: torch.Generator) -> dict[str, torch.Tensor]:
         H, a = self.cfg.algo.horizon_len, self.ma.action_dim

@@ -1,8 +1,9 @@
 """Dataclass configuration tree for the PyTorch port.
 
 A copy of the PQL, off-policy baseline (DDPG, SAC, CrossQ, IDDPG),
-on-policy (PPO, IPPO, MAPPO, QTOTV1/V2, IART, IPPOTeam/IPPOTeam2) and
-equivariant (EQ, EQG, EQS, EQS4, MP, EQSC, EQSdata) parts of
+on-policy (PPO, IPPO, MAPPO, QTOTV1/V2, IART, IPPOTeam/IPPOTeam2),
+equivariant (EQ, EQG, EQS, EQS4, MP, EQSC, EQSdata) and team-distillation
+(EQSD, EQSD2) parts of
 ``pql_tpu.cfg.config``, kept here so the port imports nothing of
 the JAX package. The CLI grammar is the same:
 
@@ -103,6 +104,12 @@ class AlgoConfig:
     ratio_clip: float = 0.2
     # --- IPPO: one actor/critic pair for both hands, on the summed losses ---
     same_policy: bool = False
+    # --- EQSD: the team actor, a diffusion policy of diffusion_iter DDPM
+    # steps or a Gaussian; EQSD2: the KL weight, kl_max → 0 over kl_decay_iters
+    diffusion_iter: int = 5
+    diffusion: bool = False
+    kl_max: float = 1.0
+    kl_decay_iters: int = 1000
     compute_dtype: str = "float32"  # network compute dtype; params stay fp32
     replay_dtype: str = "float32"
     # iterations per train_block call (a Python loop in the port)
@@ -147,6 +154,8 @@ def _algo_presets() -> dict[str, dict[str, Any]]:
         "mp": dict(_ON_POLICY, name="MP"),
         "eqsc": dict(_ON_POLICY, name="EQSC", **_EQ_MODELS),
         "eqsdata": dict(_ON_POLICY, name="EQSdata"),
+        "eqsd": dict(_ON_POLICY, name="EQSD", **_EQ_MODELS),
+        "eqsd2": dict(_ON_POLICY, name="EQSD2", **_EQ_MODELS),
     }
 
 

@@ -1,10 +1,14 @@
 """Model registry of the port (name → class, as ``algo.act_class`` / ``algo.cri_class`` name them).
 
-The plain MLPs and the equivariant tier of the JAX registry
-(pql_tpu/models/__init__.py:39-62); the diffusion, point-cloud and visual
-models are not ported yet. ``FiniteGroup``, ``GroupEquivariantLinear`` and
-``GroupEMLP`` are exported, not registered, as in the JAX package."""
+The plain MLPs, the equivariant tier and the state-conditioned diffusion
+models of the JAX registry (pql_tpu/models/__init__.py:39-62), 18 of its
+22 names; ``DiffusionPolicy`` and the point-cloud and visual encoders
+(``Encoder``, ``StateEncoder``, ``MultiStagePointNetEncoder``) come with the
+vision tier. ``FiniteGroup``, ``GroupEquivariantLinear`` and ``GroupEMLP``
+are exported, not registered, as in the JAX package."""
 
+from pql_tpu_torch.models.diffusion import DiffusionNet, MLPResNet, StateDiffusionPolicy
+from pql_tpu_torch.models.ediffusion import EquivariantDiffusionPolicy
 from pql_tpu_torch.models.emlp import (
     EMLP,
     DiagGaussianEquivariantMLPPolicy,
@@ -42,6 +46,10 @@ MODEL_REGISTRY = {
     "DiagGaussianEquivariantMLPPolicy": DiagGaussianEquivariantMLPPolicy,
     "MLPCriticEquivariant": MLPCriticEquivariant,
     "DoubleQEquivariant": DoubleQEquivariant,
+    "DiffusionNet": DiffusionNet,
+    "StateDiffusionPolicy": StateDiffusionPolicy,
+    "MLPResNet": MLPResNet,
+    "EquivariantDiffusionPolicy": EquivariantDiffusionPolicy,
 }
 
 
@@ -54,4 +62,5 @@ def get_model(name: str):
 __all__ = ["MODEL_REGISTRY", "get_model", "MLPNet", "TanhMLPPolicy", "DiagGaussianMLPPolicy",
            "TanhDiagGaussianMLPPolicy", "DoubleQ", "DoubleQBatchNorm", "DistributionalDoubleQ", "MLPCritic", "EMLP",
            "EquivariantMLPNet", "TanhEquivariantMLPPolicy", "DiagGaussianEquivariantMLPPolicy",
-           "MLPCriticEquivariant", "DoubleQEquivariant", "FiniteGroup", "GroupEquivariantLinear", "GroupEMLP"]
+           "MLPCriticEquivariant", "DoubleQEquivariant", "FiniteGroup", "GroupEquivariantLinear", "GroupEMLP",
+           "DiffusionNet", "StateDiffusionPolicy", "MLPResNet", "EquivariantDiffusionPolicy"]

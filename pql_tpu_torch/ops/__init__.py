@@ -1,5 +1,6 @@
 """Numeric building blocks of the port: normalizer, noise, schedules,
-distributional ops, and the hand-written kernels (``ops.kernels``)."""
+distributional ops, the DDPM schedule and sampler (``ops.ddpm``), and the
+hand-written kernels (``ops.kernels``)."""
 
 from pql_tpu_torch.ops.distributional import (
     binary_cross_entropy,
@@ -10,10 +11,11 @@ from pql_tpu_torch.ops.distributional import (
 from pql_tpu_torch.ops.kernels import c51_td_target
 from pql_tpu_torch.ops.noise import add_mixed_normal_noise, add_normal_noise, mixed_noise_std
 from pql_tpu_torch.ops.running_norm import RunningMeanStd
-from pql_tpu_torch.ops.schedules import schedule_value
+from pql_tpu_torch.ops.schedules import LinearSchedule, schedule_value
 from pql_tpu_torch.ops.soft_update import soft_update
 
 __all__ = [
+    "LinearSchedule",
     "RunningMeanStd",
     "add_mixed_normal_noise",
     "add_normal_noise",

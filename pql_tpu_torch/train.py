@@ -18,6 +18,8 @@ and ``train_baseline``, :260-314, chosen by ``algo.name`` as at :328-331).
         # or algo=qtotv1, qtotv2, ippoteam, ippoteam2
     python -m pql_tpu_torch.train algo=eq task=BimanualReacher num_envs=4096 max_time=600
         # or algo=eqs, eqg, eqsc, eqsdata, eqs4, mp
+    python -m pql_tpu_torch.train algo=eqsd task=BimanualReacher num_envs=4096 algo.diffusion=true max_time=600
+        # or algo=eqsd without algo.diffusion, or algo=eqsd2
 
 A PQL run, as the JAX package's:
 
@@ -41,7 +43,7 @@ A PQL run, as the JAX package's:
   ``profile_iters`` iterations from iteration 2 on.
 
 A DDPG, SAC, CrossQ, IDDPG, PPO, IPPO, MAPPO, QTOTV1, QTOTV2, IART,
-IPPOTeam, IPPOTeam2, EQ, EQS, EQG, EQSC, EQSdata, EQS4 or MP run
+IPPOTeam, IPPOTeam2, EQ, EQS, EQG, EQSC, EQSdata, EQS4, MP, EQSD or EQSD2 run
 (``train_baseline``), as the JAX package's: the
 same start (artifact, full-state resume, else the warm-up of an agent that
 has one: the off-policy agents; the on-policy agents have none), then one

@@ -7,7 +7,7 @@ package writes orbax directories; the formats differ):
   ``<dir>/state.pt``) of a ``PQLState``, of a baseline's ``OffPolicyState``
   / ``SACState`` / ``IDDPGState`` or of an on-policy ``PPOState`` (PPO,
   MAPPO, EQG) / ``IPPOState`` (IPPO, QTOT, the team agents, EQ, EQS, EQS4,
-  EQSdata, MP) / ``EQSCState``: the actor, critic
+  EQSdata, MP, EQSD, EQSD2) / ``EQSCState``: the actor, critic
   and target weights (the actor target where the state has one; a CrossQ
   critic's BatchNorm statistics are its buffers; a two-agent state's
   ``nets``, IDDPG's targets among them) and the optimizers' ``state_dict``s

@@ -1,5 +1,6 @@
 """Carry weights and PQL, DDPG, SAC, CrossQ, IDDPG, PPO, IPPO, MAPPO, QTOT,
-team-agent and equivariant-agent states from the JAX package into the port.
+team-agent, equivariant-agent and EQSD / EQSD2 states from the JAX package
+into the port.
 
 Inputs are plain nested dicts of numpy arrays (no JAX object crosses), so
 this module imports nothing of JAX:
@@ -53,7 +54,13 @@ this module imports nothing of JAX:
   ``ppo_state_from_jax``: PPO, MAPPO, EQG); ``load_ppo_state`` writes either
   into the port's state. An EMLP's flax tree maps as ``EMLP_0`` → ``net``,
   ``EquivariantLinear_i`` → ``layers.i`` and its invariant head
-  ``TorchLinear_0`` → ``head``.
+  ``TorchLinear_0`` → ``head``. A diffusion net's ``TorchLinear_i`` are
+  ``layers.i`` (``DiffusionNet``: 0-1 the time MLP, 2-5 the trunk; the
+  equivariant net's time MLP beside its ``EMLP_0`` → ``net``); an
+  ``MLPResNetBlock_i`` is ``blocks.i`` with ``LayerNorm_0`` → ``norm``,
+  ``TorchLinear_0`` → ``dense1`` and ``dense2``. EQSD's and EQSD2's
+  ``actor_team`` (and EQSD2's ``critic_team``) are networks of ``params``
+  like the others.
 - ``snapshot_from_jax(tree, actor, critic)`` converts the ``{actor, critic,
   obs_rms}`` payload of the JAX ``save_model_snapshot`` (read from its orbax
   directory on the JAX side, as numpy; a two-agent agent's actor and critic
@@ -74,15 +81,23 @@ import torch
 def _module_name(flax_name: str, siblings=()) -> str:
     """The port's submodule name of a flax module; ``siblings``, the other
     names of its level, tell an EMLP's invariant head (``TorchLinear_0``
-    beside ``EquivariantLinear_i``: ``head``) from an MLP's layer."""
+    beside ``EquivariantLinear_i``: ``head``) and a residual block's first
+    layer (``TorchLinear_0`` beside ``dense2``: ``dense1``) from an MLP's
+    layer. A diffusion net's ``TorchLinear_i`` beside ``EMLP_0`` is a layer
+    of its time MLP."""
     if flax_name in ("MLPNet_0", "EMLP_0"):
         return "net"
-    m = re.fullmatch(r"(TorchLinear|BatchNorm|EquivariantLinear|GroupEquivariantLinear)_(\d+)", flax_name)
+    if flax_name == "LayerNorm_0":  # the one LayerNorm of an MLPResNetBlock
+        return "norm"
+    m = re.fullmatch(r"(TorchLinear|BatchNorm|EquivariantLinear|GroupEquivariantLinear|MLPResNetBlock)_(\d+)",
+                     flax_name)
     if not m:
         return flax_name
     if m.group(1) == "TorchLinear" and any("EquivariantLinear" in s for s in siblings):
         return "head"
-    return f"{'norms' if m.group(1) == 'BatchNorm' else 'layers'}.{m.group(2)}"
+    if m.group(1) == "TorchLinear" and "dense2" in siblings:
+        return "dense1"
+    return f"{dict(BatchNorm='norms', MLPResNetBlock='blocks').get(m.group(1), 'layers')}.{m.group(2)}"
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:

@@ -307,12 +307,12 @@ def test_episode_stats_match_jax():
         EpisodeStats(E, L, info_keys=("a",), info_modes=("every",), device="cpu")
 
 
-@pytest.mark.parametrize("name", ["EQSD", "EQSD2", "PPOV", "DDPGV"])
+@pytest.mark.parametrize("name", ["PPOV", "IPPOV", "DDPGV"])
 def test_get_algo_refuses_unported(name):
     with pytest.raises(NotImplementedError, match=r"not ported yet; ported: \['CrossQ', 'DDPG', 'EQ', 'EQG', 'EQS', "
-                                                  r"'EQS4', 'EQSC', 'EQSdata', 'IART', 'IDDPG', 'IPPO', 'IPPOTeam', "
-                                                  r"'IPPOTeam2', 'MAPPO', 'MP', 'PPO', 'PQL', 'QTOTV1', 'QTOTV2', "
-                                                  r"'SAC'\]"):
+                                                  r"'EQS4', 'EQSC', 'EQSD', 'EQSD2', 'EQSdata', 'IART', 'IDDPG', "
+                                                  r"'IPPO', 'IPPOTeam', 'IPPOTeam2', 'MAPPO', 'MP', 'PPO', 'PQL', "
+                                                  r"'QTOTV1', 'QTOTV2', 'SAC'\]"):
         get_algo(name)
 
 
@@ -322,8 +322,8 @@ def test_config_refuses_unported(tmp_path):
     with pytest.raises(NotImplementedError, match="'PPOV' is not ported yet"):
         train.main(["algo=ddpg", "algo.name=PPOV", f"logging.out_dir={tmp_path}", "--device=cpu"])
     assert not os.listdir(tmp_path)  # refused before the run directory is made
-    with pytest.raises(AttributeError, match="No config field 'algo.diffusion_iter'"):
-        parse_cli(["algo=ddpg", "algo.diffusion_iter=3"])
+    with pytest.raises(AttributeError, match="No config field 'algo.encoder_weights'"):
+        parse_cli(["algo=ddpg", "algo.encoder_weights=w.npz"])
     cfg = parse_cli(["algo=sac", "info_track_keys=[success]", "algo.alpha=0.2"])
     assert (cfg.algo.name, cfg.algo.act_class, cfg.info_track_keys, cfg.algo.alpha) == (
         "SAC", "TanhDiagGaussianMLPPolicy", ("success",), 0.2)

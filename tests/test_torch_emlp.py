@@ -261,7 +261,8 @@ def test_group_buffers_follow_the_module_and_stay_out_of_the_state_dict():
 def test_registry_holds_the_equivariant_names():
     assert {"EMLP", "EquivariantMLPNet", "TanhEquivariantMLPPolicy", "DiagGaussianEquivariantMLPPolicy",
             "MLPCriticEquivariant", "DoubleQEquivariant"} <= set(MODEL_REGISTRY)
-    assert "EquivariantDiffusionPolicy" not in MODEL_REGISTRY
+    assert "EquivariantDiffusionPolicy" in MODEL_REGISTRY  # the diffusion tier (tests/test_torch_ddpm.py)
+    assert "DiffusionPolicy" not in MODEL_REGISTRY  # on the point-cloud Encoder: the vision tier
 
 
 # ------------------------------------------------------ the raw-weight step

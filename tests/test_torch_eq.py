@@ -11,7 +11,8 @@
   EQ, EQS and EQG (full width) stay equivariant and their critics invariant
   (tests/test_equivariant.py:207-222);
 - the refusals: PQL, DDPG, SAC, CrossQ, PPO, MAPPO and IDDPG take no
-  equivariant ``act_class`` / ``cri_class``; EQSD and EQSD2 stay unported;
+  equivariant ``act_class`` / ``cri_class``; ``algo=eqsd|eqsd2`` parse to
+  their presets (the agents: tests/test_torch_eqsd*.py);
 - the entry point with ``algo=eq``: evals, the best model, a checkpoint;
 - no module of the tier imports JAX, flax, optax or the JAX package.
 
@@ -177,13 +178,18 @@ def test_agents_without_reps_refuse_equivariant_nets(algo, task, field, name):
         get_algo(cfg.algo.name)(cfg, device="cpu").init()
 
 
-def test_eqsd_stays_unported():
-    for algo in ("eqsd", "eqsd2"):
-        with pytest.raises(ValueError, match="Unknown algo"):
-            parse_cli([f"algo={algo}"])
-    for name in ("EQSD", "EQSD2"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            get_algo(name)
+def test_eqsd_parse_to_their_presets():
+    """``algo=eqsd|eqsd2``: the JAX package's ``_ppo_like`` with the
+    equivariant classes (pql_tpu/cfg/config.py:265-266) and the diffusion
+    and KL fields at their defaults (:140-146)."""
+    for algo, name in (("eqsd", "EQSD"), ("eqsd2", "EQSD2")):
+        a = parse_cli([f"algo={algo}"]).algo
+        assert (a.name, a.horizon_len, a.batch_size, a.update_times, a.eval_freq) == (name, 16, 32768, 4, 20)
+        assert (a.act_class, a.cri_class) == ("DiagGaussianEquivariantMLPPolicy", "MLPCriticEquivariant")
+        assert (a.diffusion_iter, a.diffusion, a.kl_max, a.kl_decay_iters) == (5, False, 1.0, 1000)
+        assert get_algo(name).name == name
+    a = parse_cli(["algo=eqsd", "algo.diffusion=true", "algo.diffusion_iter=3", "algo.kl_decay_iters=10"]).algo
+    assert (a.diffusion, a.diffusion_iter, a.kl_decay_iters) == (True, 3, 10)
 
 
 def test_entry_point_runs_eq(tmp_path):

@@ -19,6 +19,7 @@ from chip_smoke import (
     BASELINE_ALGOS,
     C51_CASES,
     EQ_CLASSES,
+    EQSD_REF,
     DDPG_THRESHOLD,
     FRANKA_MAX_FLIPS,
     HAND_MAX_FLIPS,
@@ -32,9 +33,11 @@ from chip_smoke import (
     envs_beyond_tol,
     eq_layer_check,
     eq_reference,
+    eqsd_reference,
     equivariance_errors,
     learning_gate_return,
     ppo_reference,
+    sampler_check,
     state_diffs,
     step_tol,
     two_agent_reference,
@@ -565,6 +568,71 @@ def test_eq_agents_iterate_on_card(cuda, algo, task, extra):
 @pytest.mark.parametrize("algo", ["eqsc", "eqs4", "eqsdata"])
 def test_eq_kill_and_resume_bitwise_on_card(cuda, tmp_path, algo):
     cfg = make_config(algo, task="BimanualReacherSym", num_envs=64, algo__horizon_len=8, algo__batch_size=128)
+    agent = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s, _ = agent.train_iter(agent.init(seed=0))
+    checkpoint.save_checkpoint(str(tmp_path / "state"), s)
+    for _ in range(2):
+        s, _ = agent.train_iter(s)
+    agent2 = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s2 = checkpoint.load_checkpoint(str(tmp_path / "state"), agent2.init(seed=7))
+    for _ in range(2):
+        s2, _ = agent2.train_iter(s2)
+    assert state_diffs(s, s2) == []
+
+
+def _variant_id(ref):
+    algo, kwargs = ref
+    return algo + ("-diffusion" if kwargs.get("algo__diffusion") else "") + (
+        "-plain" if kwargs.get("algo__act_class") == "DiagGaussianMLPPolicy" else "")
+
+
+@pytest.mark.gpu
+def test_eqsd_tier_on_card_matches_cpu(cuda):
+    """chip_smoke's eqsd_reference: two iterations of EQSD with each of its
+    four team actors and of EQSD2 (equivariant and plain), card vs CPU, the
+    trained networks' equivariance on the card (the diffusion team's
+    ε-field and sampler among them), and both samplers at 4096 rows card vs
+    CPU (it raises beyond its tolerances)."""
+    out = eqsd_reference(cuda, "")
+    assert len(out["runs"]) == 6 and len(out["sampler"]) == 2
+
+
+@pytest.mark.gpu
+def test_diffusion_samplers_on_card_match_cpu(cuda):
+    """chip_smoke's sampler_check: both diffusion policies at full width,
+    4096 rows, the same draws on the card and the CPU within 1e-5·(1 + |a|),
+    and the equivariant one equivariant on the card."""
+    out = sampler_check(cuda)
+    assert all(r["card_vs_cpu_rel_err"] <= 1e-5 for r in out.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ref", EQSD_REF, ids=[_variant_id(r) for r in EQSD_REF])
+def test_eqsd_agents_iterate_on_card(cuda, ref):
+    """Three iterations on the card at a small size (networks at full width):
+    epochs x minibatches updates, finite losses, and every equivariant
+    network, the diffusion team's ε-field and sampler among them, still
+    equivariant within 1e-5."""
+    algo, kwargs = ref
+    cfg = make_config(algo, **kwargs)
+    agent = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s = agent.init(seed=0)
+    for _ in range(3):
+        s, m = agent.train_iter(s)
+        assert all(bool(torch.isfinite(v)) for v in m.values()), m
+    assert (s.update_count, s.env_steps) == (3 * 2 * agent.rows // 128, 3 * 8 * cfg.num_envs)
+    assert "train/actor_loss_team" in m
+    equivariance_errors(agent, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo,extra", [("eqsd", dict(algo__diffusion=True)), ("eqsd2", {})],
+                         ids=["eqsd-diffusion", "eqsd2"])
+def test_eqsd_kill_and_resume_bitwise_on_card(cuda, tmp_path, algo, extra):
+    """A checkpointed EQSD (diffusion team: its draws come from the state's
+    generator) or EQSD2 state resumed into a fresh agent continues bitwise."""
+    cfg = make_config(algo, task="BimanualReacherSym", num_envs=64, algo__horizon_len=8, algo__batch_size=128,
+                      **extra)
     agent = get_algo(cfg.algo.name)(cfg, device=cuda)
     s, _ = agent.train_iter(agent.init(seed=0))
     checkpoint.save_checkpoint(str(tmp_path / "state"), s)

@@ -95,6 +95,8 @@ def _reset_draw(env: JVecEnv, k_reset) -> np.ndarray:
         ["algo=iart", "task=BimanualReacher", "num_envs=4096"],
         ["algo=ippoteam", "task=BimanualReacherSym"],
         ["algo=ippoteam2", "task=BimanualReacher", "algo.batch_size=16384"],
+        ["algo=eqsd", "task=BimanualReacher", "num_envs=4096", "algo.diffusion=true", "algo.diffusion_iter=3"],
+        ["algo=eqsd2", "task=BimanualReacherSym", "algo.kl_max=0.5", "algo.kl_decay_iters=200"],
     ],
 )
 def test_cfg_parse_cli_matches(argv):
@@ -109,9 +111,9 @@ def test_cfg_parse_cli_matches(argv):
 
 def test_cfg_rejects_knobs_the_port_lacks():
     with pytest.raises(AttributeError):
-        tcfg.parse_cli(["algo=pql", "algo.diffusion_iter=3"])  # a diffusion-policy knob
+        tcfg.parse_cli(["algo=pql", "algo.encoder_weights=w.npz"])  # a vision-encoder knob
     with pytest.raises(ValueError):
-        tcfg.parse_cli(["algo=eqsd"])  # the equivariant tier is not ported yet
+        tcfg.parse_cli(["algo=ppov"])  # the vision tier is not ported yet
 
 
 # ----------------------------------------------------------------- envs
