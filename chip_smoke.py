@@ -65,7 +65,7 @@ line each:
 15. baseline_reference — warm-up and two iterations of DDPG, SAC and CrossQ
    at a small size on the card and on the CPU, same state and draws;
 16. baseline_main_path — DDPG Cartpole @16 (the JAX bench's
-   cartpole_ddpg_16) for 202 iterations, and DDPG, SAC and CrossQ on Ant
+   cartpole_ddpg_16) for 106 iterations, and DDPG, SAC and CrossQ on Ant
    @4096 for 11 iterations each after the warm-up, at full width: ms/iter,
    env-steps/s, 8 updates per iteration, device ms/iter (sim graph and
    learner on Ant);
@@ -105,7 +105,7 @@ line each:
    replay 1e-4);
 26. iddpg_main_path — ``algo=iddpg task=BimanualReacher num_envs=4096`` at
    its preset (batch 8192, memory 5e6: ring 1220 x 4096 x 55 fp32, 8
-   updates of both hands per iteration): warm-up and 56 iterations, as
+   updates of both hands per iteration): warm-up and 36 iterations, as
    baseline_main_path, with the replay's columns 28-29 holding two distinct
    reward channels;
 27. team_main_path — QTOTV1, QTOTV2, IART, IPPOTeam and IPPOTeam2 on
@@ -152,13 +152,30 @@ line each:
 34. eqsd_entry_path — ``train.main algo=eqsd algo.diffusion=true
    task=BimanualReacher num_envs=4096`` through ppo_entry_path: an eval and
    a checkpoint at iteration 4, resumed to 6 bitwise equal to an
-   uninterrupted run.
+   uninterrupted run;
+35. vision_reference — each module of the vision tier (the point-cloud
+   encoders, ``PointNetEncoderXYZ``, ``TimestepEmbedder``, ``ResEncoder``,
+   ``DINOEncoder``, the PPOV actor) and the vision tasks' views at 4096 envs
+   on the card against the CPU (``VISION_TOL``·(1 + |f|) for the conv nets,
+   ``EQ_TOL`` for the rest); two iterations of PPOV (ReacherVision) and IPPOV
+   (BimanualReacherVision) at a small size, card vs CPU (``card_vs_cpu``);
+   ``DiffusionPolicy``'s sampler at 4096 rows card vs CPU, with its ms;
+36. vision_main_path — ``algo=ppov task=ReacherVision num_envs=4096`` and
+   ``algo=ippov task=BimanualReacherVision num_envs=4096`` at the presets
+   (horizon 16, batch 32768, 4 epochs: 8 updates per iteration; fp32
+   without TF32), as two_agent_main_path: ms/iter, device ms, busy share,
+   peak memory, the render's ms per step and the memory it adds, and the
+   trunk ops' share of the profiled device time (``TRUNK_OPS``);
+37. vision_entry_path — ``train.main algo=ppov task=ReacherVision
+   num_envs=4096`` through ppo_entry_path: an eval (rendered from the eval
+   env's state) and a checkpoint at iteration 2, resumed to 3 bitwise equal
+   to an uninterrupted run, the checkpoint's bytes and save and load seconds.
 
-``--entry`` runs ``ENTRY_RUNS`` instead: PPO Ant and IPPO through
-ppo_entry_path, IDDPG at its full preset (ring 5e6) through
-baseline_entry_path.
+``--entry`` runs ``ENTRY_RUNS`` instead: PPO Ant, IPPO and PPOV
+ReacherVision through ppo_entry_path, IDDPG at its full preset (ring 5e6)
+through baseline_entry_path.
 
-Each main path, and each of phases 11, 12, 14, 16-18 and 20-34, resets the
+Each main path, and each of phases 11, 12, 14, 16-18 and 20-37, resets the
 kernels' launch counts just before it drives the port and reads them just
 after (0 ``c51_td_target`` launches on every on-policy path). Then the ``{"kernels": [...]}`` line, the nvidia-smi
 line, and last
@@ -270,7 +287,7 @@ BASELINE_ALGOS = ("ddpg", "sac", "crossq")
 BASELINE_REF = dict(num_envs=64, algo__batch_size=256, algo__memory_size=64 * 64, algo__warm_up=8)
 # the JAX bench's cartpole_ddpg_16 (bench.py:156-164): the Cartpole baseline cell and the entry point's
 DDPG_CARTPOLE_ARGV = ("algo=ddpg", "task=Cartpole", "num_envs=16", "algo.batch_size=1024", "algo.memory_size=1000000")
-DDPG_CARTPOLE_DEPTH = (8, 4, 48, 2)  # warm, blocks x iterations timed, profiled: 202 iterations
+DDPG_CARTPOLE_DEPTH = (8, 4, 24, 2)  # warm, blocks x iterations timed, profiled: 106 iterations
 BASELINE_ANT_DEPTH = (2, 2, 4, 1)  # 11 iterations after the warm-up
 BASELINE_ENTRY_ITERS = (24, 30)  # the first run stops after 24 iterations, the resumed one after 30
 BASELINE_ENTRY_EVAL_FREQ = 12  # evals at iterations 12, 24 (and 36 on no run)
@@ -281,8 +298,8 @@ BASELINE_ENTRY_CKPT_FREQ = 12
 PPO_REF = [("ppo", dict(task="Cartpole", algo__value_norm=True)), ("ippo", dict(task="BimanualReacher")),
            ("ippo", dict(task="BimanualReacherSym", algo__same_policy=True)), ("mappo", dict(task="BimanualReacher"))]
 PPO_REF_SIZE = dict(num_envs=64, algo__horizon_len=8, algo__batch_size=128, algo__update_times=2)
-PPO_PATHS = [(("algo=ppo", "task=Ant", "task_param=true"), (1, 2, 2, 1)),
-             (("algo=ppo", "task=FrankaCubeStack", "task_param=true"), (1, 2, 2, 1))]
+PPO_PATHS = [(("algo=ppo", "task=Ant", "task_param=true"), (1, 1, 2, 1)),
+             (("algo=ppo", "task=FrankaCubeStack", "task_param=true"), (1, 1, 2, 1))]
 TWO_AGENT_PATHS = [(("algo=ippo", "task=BimanualReacher", "num_envs=4096"), (2, 2, 3, 1)),
                    (("algo=mappo", "task=BimanualReacher", "num_envs=4096"), (2, 2, 3, 1)),
                    (("algo=ippo", "task=BimanualReacherSym", "num_envs=4096", "algo.same_policy=true"), (2, 2, 3, 1))]
@@ -297,7 +314,7 @@ TWO_AGENT_REF = [("iddpg", dict(BASELINE_REF, task="BimanualReacher")),
                  ("ippoteam", dict(PPO_REF_SIZE, task="BimanualReacherSym")),
                  ("ippoteam2", dict(PPO_REF_SIZE, task="BimanualReacher"))]
 IDDPG_ARGV = ("algo=iddpg", "task=BimanualReacher", "num_envs=4096")
-IDDPG_DEPTH = (4, 5, 10, 2)  # warm, blocks x iterations timed, profiled: 56 iterations after the warm-up
+IDDPG_DEPTH = (4, 3, 10, 2)  # warm, blocks x iterations timed, profiled: 36 iterations after the warm-up
 # (a profiled window on QTOTV1, IART and IPPOTeam only: reading a profile
 # takes 7-8 s, and the script's time limit holds the equivariant tier too)
 TEAM_PATHS = [((f"algo={a}", "task=BimanualReacher", "num_envs=4096"), (1, 2, 1, int(a in ("qtotv1", "iart",
@@ -354,15 +371,35 @@ EQSD_PATHS = [(EQSD_ARGV, (1, 1, 3, 0)), (EQSD_ARGV + ("algo.diffusion=true",), 
               (("algo=eqsd2", "task=BimanualReacher", "num_envs=4096") + PLAIN_ARGV, (1, 1, 3, 0))]
 EQSD_ENTRY_ARGV = EQSD_ARGV + ("algo.diffusion=true",)
 EQSD_ENTRY_ITERS = (4, 6)  # an eval and a checkpoint at 4, resumed to 6
+# the vision tier: modules card vs CPU (the conv nets within VISION_TOL·(1 + |f|): ten fp32 convolutions
+# deep, cuDNN and oneDNN sum in different orders; the others within EQ_TOL), short PPOV / IPPOV runs
+# (card_vs_cpu), then PPOV ReacherVision and IPPOV BimanualReacherVision @4096 at the presets
+VISION_TOL = 1e-4
+VISION_ROWS = 64  # the modules' batch card vs CPU
+# One update per iteration and seeds whose runs are well-conditioned: the PointNet actors' max over
+# points and Adam's normalization of their many near-zero gradient elements make a run's two-iteration
+# step move by 1-20% of its norm under a 1e-7 change of the initial weights at most sizes and seeds, on
+# the CPU alone (tools/diffusion_conditioning.py --refs vision); these move by <= 0.05% (PERF.md, PR 11).
+VISION_REF = [("ppov", dict(task="ReacherVision", num_envs=16, algo__horizon_len=8, algo__batch_size=128,
+                            algo__update_times=1, seed=3)),
+              ("ippov", dict(task="BimanualReacherVision", num_envs=8, algo__horizon_len=4, algo__batch_size=32,
+                             algo__update_times=1, seed=0))]
+VISION_PATHS = [(("algo=ppov", "task=ReacherVision", "num_envs=4096"), (1, 1, 2, 1)),
+                (("algo=ippov", "task=BimanualReacherVision", "num_envs=4096"), (1, 1, 2, 1))]
+TRUNK_OPS = r"convolution|group_norm|max_pool2d"  # the ops of the ResNet trunk alone (the other nets have none)
+RENDER_REPS = 5
+VISION_ENTRY_ARGV = ("algo=ppov", "task=ReacherVision", "num_envs=4096")
+VISION_ENTRY_ITERS = (2, 3)  # an eval and a checkpoint at 2, resumed to 3 (~7.7 s per iteration)
+VISION_ENTRY_FREQ = 2
 PPO_ENTRY_ARGV = ("algo=ppo", "task=Cartpole")  # 4096 envs, horizon 16, batch 32768, 4 epochs
 PPO_ENTRY_ITERS = (8, 12)  # the first run stops after 8 iterations, the resumed one after 12
-PPO_ENTRY_EVAL_FREQ = 4
-PPO_ENTRY_CKPT_FREQ = 4
+PPO_ENTRY_EVAL_FREQ = 4  # and the checkpoint period
 # ``python3 chip_smoke.py --entry``: the CLI acceptance runs; the on-policy
 # ones through ppo_entry_path, stopped after 4 iterations and resumed to 6
 # (an eval at 4), IDDPG (a warm-up) through baseline_entry_path
 ENTRY_RUNS = [(("algo=ppo", "task=Ant", "task_param=true"), (4, 6)),
               (("algo=ippo", "task=BimanualReacher", "num_envs=4096"), (4, 6)),
+              (VISION_ENTRY_ARGV, (4, 6)),
               (IDDPG_ARGV, BASELINE_ENTRY_ITERS)]
 SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
@@ -1440,7 +1477,7 @@ def baseline_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
 
 
 def baseline_main_path(dev, smi: str) -> dict:
-    """DDPG on Cartpole @16 (the JAX bench's cartpole_ddpg_16) for 202
+    """DDPG on Cartpole @16 (the JAX bench's cartpole_ddpg_16) for 106
     iterations, then DDPG, SAC and CrossQ on Ant @4096 (batch 8192, memory
     5e6: ring 1220 x 4096 x 78 fp32; CrossQ's critic sees 16,384 rows per
     update) for 11 iterations each after the warm-up."""
@@ -1688,7 +1725,7 @@ def two_agent_reference(dev) -> dict:
 
 
 def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters: int, profiled_iters: int,
-                 after=None) -> dict:
+                 after=None, trunk_ops: str | None = None) -> dict:
     """An on-policy agent's path at full width through the agent:
     ``warm_iters`` + ``blocks`` x ``block_iters`` iterations timed in blocks,
     then a profiled window of ``profiled_iters`` (none when 0) whose kernel
@@ -1698,7 +1735,9 @@ def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
     around each control step give the sim's span on the stream. The
     kernels' launch counts are reset before the path runs and read after.
     ``after(agent, state)``, when given, checks the final state and returns
-    a dict for the run's line."""
+    a dict for the run's line. ``trunk_ops``, a regex of op names, adds the
+    device ms those ops launch in the profiled window and their share."""
+    import re
     import statistics
 
     import torch
@@ -1792,6 +1831,10 @@ def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
     out.update(profiled_wall_ms_per_iter=profiled_wall_ms, device_ms_per_iter=kernel_ms,
                device_busy_share=kernel_ms / ms, kernel_launches_per_iter=window_launches / profiled_iters,
                profile_read_s=time.perf_counter() - t1)
+    if trunk_ops:
+        trunk_ms = sum(_self_device_us(r) for r in prof.key_averages() if r.device_type == DeviceType.CPU
+                       and re.search(trunk_ops, r.key)) / 1e3 / profiled_iters
+        out.update(trunk_ops=trunk_ops, trunk_device_ms_per_iter=trunk_ms, trunk_share_of_device=trunk_ms / kernel_ms)
     graphs = getattr(task, "_graphs", None)
     if graphs:
         graph = graphs[(E, torch.device(dev))]
@@ -1809,14 +1852,14 @@ def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
     return out
 
 
-def onpolicy_paths(dev, smi: str, paths, after=None) -> dict:
+def onpolicy_paths(dev, smi: str, paths, after=None, trunk_ops: str | None = None) -> dict:
     """``onpolicy_run`` of each (argv, depth) in ``paths``, one after another."""
     import torch
 
     runs = {}
     for argv, depth in paths:
         t0 = time.perf_counter()
-        r = onpolicy_run(dev, smi, argv, *depth, after=after)
+        r = onpolicy_run(dev, smi, argv, *depth, after=after, trunk_ops=trunk_ops)
         r["wall_s"] = time.perf_counter() - t0
         runs[" ".join(argv)] = r
         torch.cuda.empty_cache()
@@ -1850,7 +1893,7 @@ def _check_sym_share(runs: dict) -> None:
 def iddpg_main_path(dev, smi: str) -> dict:
     """IDDPG on BimanualReacher @4096 at its preset (batch 8192, memory 5e6:
     ring 1220 x 4096 x 55 fp32, 8 updates of both hands per iteration):
-    warm-up and 56 iterations, as ``baseline_run``, with the replay's two
+    warm-up and 36 iterations, as ``baseline_run``, with the replay's two
     reward channels (columns 28-29) checked distinct; no ``c51_td_target``
     launch."""
     r = baseline_run(dev, smi, IDDPG_ARGV, *IDDPG_DEPTH)
@@ -1869,7 +1912,7 @@ def team_main_path(dev, smi: str) -> dict:
     return out
 
 
-def ppo_entry_path(dev, smi: str, argv=PPO_ENTRY_ARGV, iters=PPO_ENTRY_ITERS) -> dict:
+def ppo_entry_path(dev, smi: str, argv=PPO_ENTRY_ARGV, iters=PPO_ENTRY_ITERS, freq: int = PPO_ENTRY_EVAL_FREQ) -> dict:
     """``pql_tpu_torch.train.main`` with ``argv`` (an agent without a
     warm-up; by default PPO on Cartpole @4096) for ``iters[0]`` iterations,
     with evals, full checkpoints and a best model in ``SMOKE_DIR/ppo_entry``:
@@ -1877,7 +1920,7 @@ def ppo_entry_path(dev, smi: str, argv=PPO_ENTRY_ARGV, iters=PPO_ENTRY_ITERS) ->
     ``train_baseline`` resumes from the checkpoint to ``iters[1]``
     iterations at the predicted iteration, and ends bitwise where one
     uninterrupted run of as many iterations ends. ``iters[0]`` is a multiple
-    of ``PPO_ENTRY_CKPT_FREQ``."""
+    of ``freq``, the eval and checkpoint period (``PPO_ENTRY_EVAL_FREQ``)."""
     import contextlib
     import io
     import shutil
@@ -1896,7 +1939,7 @@ def ppo_entry_path(dev, smi: str, argv=PPO_ENTRY_ARGV, iters=PPO_ENTRY_ITERS) ->
     per_iter = cfg.num_envs * cfg.algo.horizon_len
     first, total = iters
     common = list(argv) + [
-        f"algo.eval_freq={PPO_ENTRY_EVAL_FREQ}", "algo.log_freq=1", f"checkpoint_freq={PPO_ENTRY_CKPT_FREQ}",
+        f"algo.eval_freq={freq}", "algo.log_freq=1", f"checkpoint_freq={freq}",
         f"logging.out_dir={root}/runs", "logging.console=false"]
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1909,7 +1952,7 @@ def ppo_entry_path(dev, smi: str, argv=PPO_ENTRY_ARGV, iters=PPO_ENTRY_ITERS) ->
         recs = [json.loads(line) for line in f]
     it_of = lambda step: step // per_iter  # noqa: E731  (no warm-up)
     evals = [r for r in recs if "eval/return" in r]
-    eval_its = list(range(PPO_ENTRY_EVAL_FREQ, first + 1, PPO_ENTRY_EVAL_FREQ))
+    eval_its = list(range(freq, first + 1, freq))
     check([it_of(r["step"]) for r in evals] == eval_its,
           f"eval records at iterations {[it_of(r['step']) for r in evals]}, predicted {eval_its}")
     check(all(math.isfinite(r["eval/return"]) for r in evals), "non-finite eval record")
@@ -2210,6 +2253,153 @@ def eqsd_main_path(dev, smi: str) -> dict:
     return onpolicy_paths(dev, smi, EQSD_PATHS, after=equivariance_errors)
 
 
+def _rel_err(got, want) -> float:
+    return float((got.float().cpu() - want.float()).abs().max()) / (1.0 + float(want.abs().max()))
+
+
+def vision_module_check(dev, envs: int = 4096) -> dict:
+    """Each module of the vision tier, drawn on the CPU from a seed, on the
+    card and on the CPU on the same ``VISION_ROWS`` inputs: the point-cloud
+    encoders, ``PointNetEncoderXYZ`` (LayerNorms on), ``TimestepEmbedder``,
+    ``ResEncoder`` (48×48, repr 1024), ``DINOEncoder`` (ViT-S/14 shape, depth
+    4), the PPOV actor; the ReacherVision render, proprio and cloud and the
+    BimanualReacherVision views at ``envs`` envs. The conv nets within
+    ``VISION_TOL``·(1 + |f|), the rest within ``EQ_TOL``."""
+    import copy
+
+    import torch
+    from pql_tpu_torch.envs import make_task
+    from pql_tpu_torch.models import pointnet, visual
+
+    gen = torch.Generator().manual_seed(0)
+    n = VISION_ROWS
+    state, pc = torch.randn(n, 6, generator=gen), torch.randn(n, 40, 3, generator=gen)
+    frames = torch.rand(n, 1, 2, 48, 48, 3, generator=gen)
+    cases = {
+        "MultiStagePointNetEncoder": (pointnet.MultiStagePointNetEncoder(gen=gen), (pc,), EQ_TOL),
+        "Encoder": (pointnet.Encoder(6, 128, gen=gen), (state, pc), EQ_TOL),
+        "PointNetEncoderXYZ": (visual.PointNetEncoderXYZ(3, 1024, True, "layernorm", gen=gen), (pc,), EQ_TOL),
+        "TimestepEmbedder": (visual.TimestepEmbedder(6, 256, gen=gen), (torch.rand(n, 6, generator=gen),), EQ_TOL),
+        "ResEncoder": (visual.ResEncoder((1, 2, 48, 48, 3), gen=gen), (frames,), VISION_TOL),
+        "DINOEncoder": (visual.DINOEncoder((2, 48, 48, 3), gen=gen), (torch.rand(n, 2, 48, 48, 3, generator=gen),),
+                        VISION_TOL),
+        "DiagGaussianMLPVPolicy": (visual.DiagGaussianMLPVPolicy(6, 2, (1, 2, 48, 48, 3), 256, 256, gen=gen),
+                                   (frames, state, pc), VISION_TOL),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (m, args, tol) in cases.items():
+            first = lambda y: y[0] if isinstance(y, tuple) else y  # noqa: E731
+            want = first(m(*args))
+            got = first(copy.deepcopy(m).to(dev)(*(a.to(dev) for a in args)))
+            err = _rel_err(got, want)
+            check(err <= tol, f"{name}: card vs CPU {err:.3g} > {tol}")
+            out[name] = dict(card_vs_cpu_rel_err=err, tol=tol)
+        for task_name in ("ReacherVision", "BimanualReacherVision"):
+            task = make_task(task_name)
+            st = task.init_state(task.draw_reset(torch.Generator().manual_seed(1), envs))
+            st, *_ = task.dynamics(st, torch.rand(envs, task.action_dim, generator=gen) * 2 - 1)
+            card = {k: v.to(dev) for k, v in st.items()}
+            for view in ("proprio", "pointcloud", "render"):
+                if hasattr(task, view):
+                    err = _rel_err(getattr(task, view)(card), getattr(task, view)(st))
+                    check(err <= EQ_TOL, f"{task_name}.{view}: card vs CPU {err:.3g}")
+                    out[f"{task_name}.{view}"] = dict(card_vs_cpu_rel_err=err, tol=EQ_TOL, envs=envs)
+    return out
+
+
+def diffusion_policy_check(dev) -> dict:
+    """The vision tier's ``DiffusionPolicy`` (point-cloud ``Encoder`` + the
+    [1024, 512, 256] ``DiffusionNet``) at ``SAMPLE_ROWS`` rows: its DDPM
+    sampler on the card and on the CPU from the same draws within
+    ``EQ_TOL``·(1 + |a|), and the card's ms per sample (CUDA events around
+    ``SAMPLE_REPS`` calls after one untimed)."""
+    import copy
+
+    import torch
+    from pql_tpu_torch.models.diffusion import DiffusionPolicy
+    from pql_tpu_torch.ops.ddpm import draw_sample
+
+    gen = torch.Generator().manual_seed(0)
+    pol = DiffusionPolicy(6, 2, gen=gen)
+    state, pc = torch.randn(SAMPLE_ROWS, 6, generator=gen), torch.randn(SAMPLE_ROWS, 40, 3, generator=gen)
+    x_T, noise = draw_sample(gen, SAMPLE_ROWS, 2, pol.sched.num_timesteps)
+    card = copy.deepcopy(pol).to(dev)
+    args = (state.to(dev), pc.to(dev), x_T.to(dev), noise.to(dev))
+    with torch.no_grad():
+        err = _rel_err(card.get_actions(*args), pol.get_actions(state, pc, x_T, noise))
+        check(err <= EQ_TOL, f"DiffusionPolicy: sampler card vs CPU {err:.3g}")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(SAMPLE_REPS):
+            card.get_actions(*args)
+        end.record()
+        torch.cuda.synchronize()
+    return dict(card_vs_cpu_rel_err=err, sample_ms=start.elapsed_time(end) / SAMPLE_REPS, rows=SAMPLE_ROWS,
+                steps=pol.sched.num_timesteps)
+
+
+def vision_reference(dev, smi: str) -> dict:
+    """The vision tier card vs CPU: each module (``vision_module_check``);
+    two iterations of PPOV on ReacherVision and IPPOV on
+    BimanualReacherVision at a small size (the ResNet encoder at full width;
+    ``card_vs_cpu``: steps within 1% of their norms, losses 1e-3); the
+    ``DiffusionPolicy`` sampler at 4096 rows; the kernels' launch counts are
+    reset before and read after."""
+    from pql_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    modules = vision_module_check(dev)
+    runs = card_vs_cpu(dev, VISION_REF)
+    sampler = diffusion_policy_check(dev)
+    return dict(config=[f"{a} {k}" for a, k in VISION_REF], iterations=2, card=smi, modules=modules, runs=runs,
+                diffusion_policy_sampler=sampler, launches=dict(kernels.LAUNCHES))
+
+
+def render_cost(agent, state) -> dict:
+    """A camera task's render at the run's env count: ms per call (CUDA
+    events around ``RENDER_REPS`` calls after one untimed; a rollout step
+    renders once) and the memory one call adds at its peak; 8 updates per
+    iteration."""
+    import torch
+
+    out = {}
+    check(agent.cfg.algo.update_times * agent.rows // agent.cfg.algo.batch_size == 8,
+          f"{agent.name}: not 8 updates per iteration")
+    task = agent.env.task
+    if hasattr(task, "render"):
+        st = state.env_state.state
+        task.render(st)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(RENDER_REPS):
+            img = task.render(st)
+        end.record()
+        torch.cuda.synchronize()
+        check(tuple(img.shape[1:]) == task.visual_spec["img"] and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+              f"render {tuple(img.shape)} outside [0, 1]")
+        out.update(render_ms_per_step=start.elapsed_time(end) / RENDER_REPS,
+                   render_peak_extra_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+    return out
+
+
+def vision_main_path(dev, smi: str) -> dict:
+    """PPOV on ReacherVision @4096 (ResNet-18 trunk through layer2 on 2
+    frames of 48×48, GroupNorm, fp32 without TF32) and IPPOV on
+    BimanualReacherVision @4096, at the presets (horizon 16, batch 32768, 4
+    epochs: 8 updates per iteration), as ``two_agent_main_path``, with the
+    render's cost and, in the profiled window, the trunk ops' share of the
+    device time (none on IPPOV, which has no camera)."""
+    out = onpolicy_paths(dev, smi, VISION_PATHS, after=render_cost, trunk_ops=TRUNK_OPS)
+    for name, r in out["runs"].items():
+        check((r["trunk_device_ms_per_iter"] > 0) == ("task=ReacherVision" in name),
+              f"{name}: trunk ops' device time {r['trunk_device_ms_per_iter']}")
+    return out
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -2219,8 +2409,10 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pql_tpu_torch.ops import kernels
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from pql_tpu_torch.algos.base import set_precision
+    from pql_tpu_torch.cfg import make_config
+
+    set_precision(make_config("pql"))  # fp32 without TF32, deterministic cuDNN, as train.main sets them
     dev = "cuda:0"
     smi = nvidia_smi_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -2311,6 +2503,12 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="eqsd_main_path", wall_s=s, **dmain))
     dentry, s = timed(ppo_entry_path, dev, smi, EQSD_ENTRY_ARGV, EQSD_ENTRY_ITERS)
     emit(dict(phase="eqsd_entry_path", wall_s=s, **dentry))
+    vref, s = timed(vision_reference, dev, smi)
+    emit(dict(phase="vision_reference", wall_s=s, **vref))
+    vmain, s = timed(vision_main_path, dev, smi)
+    emit(dict(phase="vision_main_path", wall_s=s, **vmain))
+    ventry, s = timed(ppo_entry_path, dev, smi, VISION_ENTRY_ARGV, VISION_ENTRY_ITERS, VISION_ENTRY_FREQ)
+    emit(dict(phase="vision_entry_path", wall_s=s, **ventry))
 
     by_path = {"pql_d Cartpole@4096": main["launches"], "pql_d AllegroHand@16384": allegro_d["launches"],
                "pql_d Cartpole@4096 entry point": entry["launches"],
@@ -2331,7 +2529,10 @@ def main(argv: list[str]) -> int:
                "algo=eqs4 BimanualReacher@4096 entry point": eentry["launches"],
                "diffusion-tier card-vs-CPU reference runs": dref["launches"],
                **{f"{name} (diffusion tier)": r["launches"] for name, r in dmain["runs"].items()},
-               "algo=eqsd algo.diffusion=true BimanualReacher@4096 entry point": dentry["launches"]}
+               "algo=eqsd algo.diffusion=true BimanualReacher@4096 entry point": dentry["launches"],
+               "vision card-vs-CPU reference runs": vref["launches"],
+               **{f"{name} (vision tier)": r["launches"] for name, r in vmain["runs"].items()},
+               "algo=ppov ReacherVision@4096 entry point": ventry["launches"]}
     emit({"kernels": [
         dict(name=c["name"], route="cuda", source=kernels.KERNELS[c["name"]]["source"],
              replaces=kernels.KERNELS[c["name"]]["replaces"],

@@ -50,6 +50,20 @@ def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.algo.compute_dtype == "bfloat16" else torch.float32
 
 
+def set_precision(cfg) -> None:
+    """The port's numerics on the card, global flags of the process (they
+    can be read and set without a card): an fp32 config (``algo.compute_dtype``
+    float32, as the JAX package asks) runs cuBLAS matmuls and cuDNN
+    convolutions in fp32, not TF32 (PyTorch's cuDNN default is TF32); and
+    cuDNN picks deterministic algorithms, so a resumed run repeats an
+    uninterrupted one bitwise (by default a convolution's backward may sum
+    in a different order on every call)."""
+    torch.backends.cudnn.deterministic = True
+    if cfg.algo.compute_dtype == "float32":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def refuse_equivariant(cfg) -> None:
     """An ``Equivariant`` act_class or cri_class needs the task's reps, which
     only the agents building their networks through ``ma_base.MultiAgentCtx``

@@ -239,10 +239,12 @@ class PPO(base.ActorCriticAgent):
     # -------------------------------------------------------------- update
 
     def _losses(self, actor, critic, obs_n, critic_obs, actions, logp_old, adv, returns, v_old):
-        """(actor loss, critic loss) of one minibatch; the critic reads ``critic_obs``."""
+        """(actor loss, critic loss) of one minibatch; the actor reads
+        ``obs_n`` (a tuple: its several inputs, the visual agents' views), the
+        critic ``critic_obs``."""
         cfg = self.cfg
         adv = ma_base.normalize_advantages(adv)
-        logp_new, entropy = actor.logprob_entropy(obs_n, actions)
+        logp_new, entropy = actor.logprob_entropy(*(obs_n if isinstance(obs_n, tuple) else (obs_n,)), actions)
         a_loss = ma_base.ppo_actor_loss(logp_new, logp_old, adv, entropy, cfg.algo.ratio_clip, cfg.algo.lambda_entropy)
         c_loss = ma_base.ppo_value_loss(critic(critic_obs)[..., 0], returns, v_old, cfg.algo.ratio_clip,
                                         cfg.algo.value_clip)

@@ -8,6 +8,7 @@ from pql_tpu_torch.cfg.config import (
     algo_config,
     make_config,
     parse_cli,
+    platform_device,
     to_dict,
 )
 
@@ -19,5 +20,6 @@ __all__ = [
     "algo_config",
     "make_config",
     "parse_cli",
+    "platform_device",
     "to_dict",
 ]

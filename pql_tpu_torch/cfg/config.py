@@ -2,10 +2,9 @@
 
 A copy of the PQL, off-policy baseline (DDPG, SAC, CrossQ, IDDPG),
 on-policy (PPO, IPPO, MAPPO, QTOTV1/V2, IART, IPPOTeam/IPPOTeam2),
-equivariant (EQ, EQG, EQS, EQS4, MP, EQSC, EQSdata) and team-distillation
-(EQSD, EQSD2) parts of
-``pql_tpu.cfg.config``, kept here so the port imports nothing of
-the JAX package. The CLI grammar is the same:
+equivariant (EQ, EQG, EQS, EQS4, MP, EQSC, EQSdata), team-distillation
+(EQSD, EQSD2) and visual (PPOV, IPPOV) parts of ``pql_tpu.cfg.config``,
+kept here so the port imports nothing of the JAX package. The CLI grammar is the same:
 
     python -m pql_tpu_torch.train algo=pql_d task=Cartpole num_envs=4096 algo.batch_size=8192
     python -m pql_tpu_torch.train algo=ddpg task=Cartpole num_envs=16 algo.batch_size=1024
@@ -13,8 +12,10 @@ the JAX package. The CLI grammar is the same:
 
 Only the fields the port's agents read are kept,
 so an override of a knob the port does not implement fails with "No config
-field" instead of being ignored. The device is an argument of the entry points, not a
-config field.
+field" instead of being ignored. The device is an argument of the entry points
+(``--device=``); the JAX package's ``platform`` field is accepted as another
+way to name it: ``cpu``, or ``gpu``/``cuda`` for the card (``platform_device``);
+``tpu`` is refused.
 """
 
 from __future__ import annotations
@@ -110,6 +111,9 @@ class AlgoConfig:
     diffusion: bool = False
     kl_max: float = 1.0
     kl_decay_iters: int = 1000
+    # a local pretrained-weight file for the vision encoders (.npz / .pth;
+    # models/pretrained.py), merged into PPOV's actor at init
+    encoder_weights: str | None = None
     compute_dtype: str = "float32"  # network compute dtype; params stay fp32
     replay_dtype: str = "float32"
     # iterations per train_block call (a Python loop in the port)
@@ -156,6 +160,8 @@ def _algo_presets() -> dict[str, dict[str, Any]]:
         "eqsdata": dict(_ON_POLICY, name="EQSdata"),
         "eqsd": dict(_ON_POLICY, name="EQSD", **_EQ_MODELS),
         "eqsd2": dict(_ON_POLICY, name="EQSD2", **_EQ_MODELS),
+        "ppov": dict(_ON_POLICY, name="PPOV"),
+        "ippov": dict(_ON_POLICY, name="IPPOV"),
     }
 
 
@@ -186,6 +192,9 @@ class Config:
     # torch.profiler Chrome trace of profile_iters iterations (None = off)
     profile_dir: str | None = None
     profile_iters: int = 20
+    # the JAX package's backend choice, read as the device: 'cpu', or
+    # 'gpu'/'cuda' for the card (platform_device; 'tpu' is refused)
+    platform: str | None = None
 
 
 TASK_REWARD_SCALE: dict[str, float] = {
@@ -219,6 +228,21 @@ PPO_TASK_PRESETS: dict[str, dict[str, Any]] = {
 }
 
 
+_PLATFORM_DEVICES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
+
+def platform_device(platform: str | None) -> str | None:
+    """The device type a ``platform`` value names (None for None)."""
+    if platform is None:
+        return None
+    key = platform.lower()
+    if key == "tpu":
+        raise ValueError("platform=tpu: the port runs on a CUDA card or the CPU (platform=gpu|cuda|cpu)")
+    if key not in _PLATFORM_DEVICES:
+        raise ValueError(f"Unknown platform {platform!r}; want one of {sorted(_PLATFORM_DEVICES)}")
+    return _PLATFORM_DEVICES[key]
+
+
 def preprocess_config(cfg: Config) -> Config:
     """Per-task reward_scale / max_time tables, applied only where the user
     kept the default (reference common.py:148-182); with ``task_param`` a
@@ -230,6 +254,7 @@ def preprocess_config(cfg: Config) -> Config:
     if cfg.algo.name == "PPO" and cfg.task_param and cfg.task in PPO_TASK_PRESETS:
         for k, v in PPO_TASK_PRESETS[cfg.task].items():
             setattr(cfg if k == "num_envs" else cfg.algo, k, v)
+    platform_device(cfg.platform)  # a bad platform fails at parse time
     return cfg
 
 

@@ -1,7 +1,9 @@
 """Environment registry (port of pql_tpu/envs/__init__.py; the classic
 tasks, the rigid-body locomotion tasks, the in-hand manipulation tasks,
-FrankaCubeStack and the two-agent BimanualReacher(Sym) so far). ``make_env(cfg)`` and ``make_eval_env(cfg)`` build the train and eval
-env instances."""
+FrankaCubeStack, the two-agent BimanualReacher(Sym) and the vision tasks
+ReacherVision and BimanualReacherVision: all 15 of the JAX registry).
+``make_env(cfg)`` and ``make_eval_env(cfg)`` build the train and eval env
+instances."""
 
 from pql_tpu_torch.envs.base import Task, VecEnv, VecEnvState, handle_timeout
 from pql_tpu_torch.envs.bimanual import BimanualReacher, BimanualReacherSym
@@ -9,6 +11,7 @@ from pql_tpu_torch.envs.classic import BallBalance, Cartpole, Pendulum, PointMas
 from pql_tpu_torch.envs.hand import AllegroHand, ShadowHand
 from pql_tpu_torch.envs.manip import FrankaCubeStack
 from pql_tpu_torch.envs.rigid import Ant, Anymal, Humanoid
+from pql_tpu_torch.envs.vision import BimanualReacherVision, ReacherVision
 
 TASK_REGISTRY = {
     "Cartpole": Cartpole,
@@ -24,6 +27,8 @@ TASK_REGISTRY = {
     "FrankaCubeStack": FrankaCubeStack,
     "BimanualReacher": BimanualReacher,
     "BimanualReacherSym": BimanualReacherSym,
+    "ReacherVision": ReacherVision,
+    "BimanualReacherVision": BimanualReacherVision,
 }
 
 

@@ -1,13 +1,14 @@
 """Model registry of the port (name → class, as ``algo.act_class`` / ``algo.cri_class`` name them).
 
-The plain MLPs, the equivariant tier and the state-conditioned diffusion
-models of the JAX registry (pql_tpu/models/__init__.py:39-62), 18 of its
-22 names; ``DiffusionPolicy`` and the point-cloud and visual encoders
-(``Encoder``, ``StateEncoder``, ``MultiStagePointNetEncoder``) come with the
-vision tier. ``FiniteGroup``, ``GroupEquivariantLinear`` and ``GroupEMLP``
-are exported, not registered, as in the JAX package."""
+All 22 names of the JAX registry (pql_tpu/models/__init__.py:39-62): the
+plain MLPs, the equivariant tier, the diffusion policies (the vision
+tier's ``DiffusionPolicy`` among them) and the point-cloud encoders
+(``MultiStagePointNetEncoder``, ``StateEncoder``, ``Encoder``).
+``FiniteGroup``, ``GroupEquivariantLinear`` and ``GroupEMLP`` are exported,
+not registered, as in the JAX package; so are the visual encoders and
+policy of ``models/visual.py``."""
 
-from pql_tpu_torch.models.diffusion import DiffusionNet, MLPResNet, StateDiffusionPolicy
+from pql_tpu_torch.models.diffusion import DiffusionNet, DiffusionPolicy, MLPResNet, StateDiffusionPolicy
 from pql_tpu_torch.models.ediffusion import EquivariantDiffusionPolicy
 from pql_tpu_torch.models.emlp import (
     EMLP,
@@ -30,6 +31,7 @@ from pql_tpu_torch.models.mlp import (
     TanhDiagGaussianMLPPolicy,
     TanhMLPPolicy,
 )
+from pql_tpu_torch.models.pointnet import Encoder, MultiStagePointNetEncoder, StateEncoder
 
 MODEL_REGISTRY = {
     "MLPNet": MLPNet,
@@ -50,6 +52,10 @@ MODEL_REGISTRY = {
     "StateDiffusionPolicy": StateDiffusionPolicy,
     "MLPResNet": MLPResNet,
     "EquivariantDiffusionPolicy": EquivariantDiffusionPolicy,
+    "DiffusionPolicy": DiffusionPolicy,
+    "MultiStagePointNetEncoder": MultiStagePointNetEncoder,
+    "StateEncoder": StateEncoder,
+    "Encoder": Encoder,
 }
 
 
@@ -63,4 +69,5 @@ __all__ = ["MODEL_REGISTRY", "get_model", "MLPNet", "TanhMLPPolicy", "DiagGaussi
            "TanhDiagGaussianMLPPolicy", "DoubleQ", "DoubleQBatchNorm", "DistributionalDoubleQ", "MLPCritic", "EMLP",
            "EquivariantMLPNet", "TanhEquivariantMLPPolicy", "DiagGaussianEquivariantMLPPolicy",
            "MLPCriticEquivariant", "DoubleQEquivariant", "FiniteGroup", "GroupEquivariantLinear", "GroupEMLP",
-           "DiffusionNet", "StateDiffusionPolicy", "MLPResNet", "EquivariantDiffusionPolicy"]
+           "DiffusionNet", "StateDiffusionPolicy", "MLPResNet", "EquivariantDiffusionPolicy", "DiffusionPolicy",
+           "MultiStagePointNetEncoder", "StateEncoder", "Encoder"]

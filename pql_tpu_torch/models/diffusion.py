@@ -15,10 +15,11 @@ Gaussian action sample through ``diffusion_iter`` reverse steps
   given draws (``ops.ddpm.draw_sample``) and returns the first
   ``action_dim`` columns; ``get_loss(obs, action, noise, timesteps)`` is the
   ε-MSE on the action noised at integer ``timesteps``;
-- ``StateDiffusionPolicy``: state-conditioned, on ``DiffusionNet``.
-
-``DiffusionPolicy`` (conditioned on the point-cloud ``Encoder``) comes with
-the vision tier, which ports the encoder.
+- ``StateDiffusionPolicy``: state-conditioned, on ``DiffusionNet``;
+- ``DiffusionPolicy``: the vision tier's, conditioned on the point-cloud
+  ``Encoder`` (``models/pointnet.py``; 128 cloud + 64 state features):
+  ``get_actions(state, pc, x_T, step_noise)``, ``get_loss(state, pc,
+  action, noise, timesteps)``.
 
 Linear maps are ``models/mlp.py``'s ``Linear`` ([out, in] weight, init from
 an explicit generator, a compute dtype); submodule names follow the flax
@@ -37,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pql_tpu_torch.models.mlp import Linear
+from pql_tpu_torch.models.pointnet import Encoder
 from pql_tpu_torch.ops.ddpm import DDPMSchedule, ddpm_add_noise, ddpm_sample
 
 
@@ -83,7 +85,7 @@ class DiffusionNet(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax.linen.LayerNorm(epsilon=1e-6) over the last axis: statistics in
-    fp32 with the variance E[x²] − E[x]² (clamped at 0), then
+    fp32 (or wider) with the variance E[x²] − E[x]² (clamped at 0), then
     (x − mean) · (rsqrt(var + eps) · scale) + bias, in the compute dtype."""
 
     def __init__(self, features: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32):
@@ -93,7 +95,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        x = x.float()
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = x.mean(-1, keepdim=True)
         var = torch.clamp(torch.mean(x * x, -1, keepdim=True) - mean * mean, min=0.0)
         return ((x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias).to(self.compute_dtype)
@@ -177,3 +179,26 @@ class StateDiffusionPolicy(DDPMPolicy):
         self.sample_dim = action_dim * horizon
         self.net = DiffusionNet(self.sample_dim, obs_dim, self.sample_dim, gen=gen, dtype=dtype)
         self.sched = DDPMSchedule(diffusion_iter)
+
+
+class DiffusionPolicy(DDPMPolicy):
+    """The vision diffusion policy: ``DiffusionNet`` conditioned on
+    ``Encoder(state, pc)`` (pointcloud_feature_dim 128); flax setup names
+    ``encoder`` and ``net``."""
+
+    def __init__(self, state_dim: int, action_dim: int, diffusion_iter: int = 5, pc_dim: int = 3,
+                 gen: torch.Generator | None = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.action_dim = self.sample_dim = action_dim
+        self.encoder = Encoder(state_dim, pointcloud_feature_dim=128, pc_dim=pc_dim, gen=gen, dtype=dtype)
+        self.net = DiffusionNet(action_dim, self.encoder.n_output_channels, action_dim, gen=gen, dtype=dtype)
+        self.sched = DDPMSchedule(diffusion_iter)
+
+    def forward(self, state, pc, x_T, step_noise):
+        return self.get_actions(state, pc, x_T, step_noise)
+
+    def get_actions(self, state, pc, x_T, step_noise):
+        return super().get_actions(self.encoder(state, pc), x_T, step_noise)
+
+    def get_loss(self, state, pc, action, noise, timesteps):
+        return super().get_loss(self.encoder(state, pc), action, noise, timesteps)

@@ -20,6 +20,8 @@ and ``train_baseline``, :260-314, chosen by ``algo.name`` as at :328-331).
         # or algo=eqs, eqg, eqsc, eqsdata, eqs4, mp
     python -m pql_tpu_torch.train algo=eqsd task=BimanualReacher num_envs=4096 algo.diffusion=true max_time=600
         # or algo=eqsd without algo.diffusion, or algo=eqsd2
+    python -m pql_tpu_torch.train algo=ppov task=ReacherVision num_envs=4096 max_time=600
+    python -m pql_tpu_torch.train algo=ippov task=BimanualReacherVision num_envs=4096 max_time=600
 
 A PQL run, as the JAX package's:
 
@@ -43,8 +45,8 @@ A PQL run, as the JAX package's:
   ``profile_iters`` iterations from iteration 2 on.
 
 A DDPG, SAC, CrossQ, IDDPG, PPO, IPPO, MAPPO, QTOTV1, QTOTV2, IART,
-IPPOTeam, IPPOTeam2, EQ, EQS, EQG, EQSC, EQSdata, EQS4, MP, EQSD or EQSD2 run
-(``train_baseline``), as the JAX package's: the
+IPPOTeam, IPPOTeam2, EQ, EQS, EQG, EQSC, EQSdata, EQS4, MP, EQSD, EQSD2, PPOV
+or IPPOV run (``train_baseline``), as the JAX package's: the
 same start (artifact, full-state resume, else the warm-up of an agent that
 has one: the off-policy agents; the on-policy agents have none), then one
 ``train_iter`` per iteration until the stop check; every ``algo.log_freq``
@@ -55,7 +57,10 @@ every ``algo.eval_freq`` iterations an eval run at once on the live actor
 as above. ``env_steps`` counts total env steps.
 
 Records go to ``logging.out_dir/run_name/metrics.jsonl`` and the console
-(``utils/logging.py``). The run is on the card unless ``--device=cpu``.
+(``utils/logging.py``). The run is on the card unless ``--device=cpu`` (or
+``platform=cpu``; a ``platform`` that contradicts ``--device`` is an
+error). An fp32 config turns TF32 off for cuBLAS and cuDNN, and cuDNN
+runs deterministic algorithms (``algos/base.py::set_precision``).
 """
 
 from __future__ import annotations
@@ -68,8 +73,9 @@ import time
 import torch
 
 from pql_tpu_torch.algos import get_algo
+from pql_tpu_torch.algos.base import set_precision
 from pql_tpu_torch.algos.pql import PQL
-from pql_tpu_torch.cfg import parse_cli, to_dict
+from pql_tpu_torch.cfg import parse_cli, platform_device, to_dict
 from pql_tpu_torch.envs import make_eval_env
 from pql_tpu_torch.utils.checkpoint import (
     load_model_snapshot,
@@ -309,17 +315,21 @@ def train_baseline(cfg, logger: RunLogger, device: str | torch.device = "cuda"):
 
 
 def main(argv: list[str]) -> None:
-    device = "cuda"
-    overrides = []
+    device, overrides = None, []
     for arg in argv:
         if arg.startswith("--device="):
             device = arg.split("=", 1)[1]
         else:
             overrides.append(arg)
+    cfg = parse_cli(overrides)
+    by_platform = platform_device(cfg.platform)
+    if by_platform is not None and device is not None and torch.device(device).type != by_platform:
+        raise SystemExit(f"platform={cfg.platform} contradicts --device={device}")
+    device = device or by_platform or "cuda"
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device found (pass --device=cpu to run on the CPU)")
-    cfg = parse_cli(overrides)
     get_algo(cfg.algo.name)  # an unported algo.name fails before the run directory is made
+    set_precision(cfg)
     train = train_pql if cfg.algo.name == "PQL" else train_baseline
     logger = RunLogger(cfg, to_dict(cfg))
     try:

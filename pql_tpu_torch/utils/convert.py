@@ -1,6 +1,6 @@
 """Carry weights and PQL, DDPG, SAC, CrossQ, IDDPG, PPO, IPPO, MAPPO, QTOT,
-team-agent, equivariant-agent and EQSD / EQSD2 states from the JAX package
-into the port.
+team-agent, equivariant-agent, EQSD / EQSD2 and PPOV / IPPOV states from the
+JAX package into the port.
 
 Inputs are plain nested dicts of numpy arrays (no JAX object crosses), so
 this module imports nothing of JAX:
@@ -41,10 +41,11 @@ this module imports nothing of JAX:
   for an IDDPG state: ``params`` and ``opts`` by network name (the six
   networks, the four trained ones' Adam states), and the rest as the
   baselines' (its n-step FIFO and replay carry two reward channels).
-- ``ppo_state_from_jax(tree)`` / ``load_ppo_state`` do the same for a PPO
-  or MAPPO state: ``actor_params``, ``critic_params``, ``actor_opt``,
-  ``critic_opt``, ``obs_rms``, ``value_rms``, ``env_state``, ``obs``,
-  ``dones``, ``stats`` (as above), ``env_steps``, ``update_count``.
+- ``ppo_state_from_jax(tree)`` / ``load_ppo_state`` do the same for a PPO,
+  MAPPO or PPOV state: ``actor_params``, ``critic_params``, ``actor_opt``,
+  ``critic_opt``, ``obs_rms``, ``value_rms`` (PPOV's state has none),
+  ``env_state``, ``obs``, ``dones``, ``stats`` (as above), ``env_steps``,
+  ``update_count``.
   ``ma_state_from_jax(tree)`` converts an IPPO state, whose ``params`` and
   ``opts`` are dicts by network name (``actor``, ``critic``[,
   ``actor_left``, ``critic_left``]; QTOT's ``critic_tot``; the team
@@ -78,26 +79,52 @@ import numpy as np
 import torch
 
 
+_SINGLE = {"MLPNet_0": "net", "EMLP_0": "net", "MLP_0": "mlp", "MultiStagePointNetEncoder_0": "pointnet",
+           "ResNet18Trunk_0": "trunk"}
+_LISTS = dict(TorchLinear="layers", EquivariantLinear="layers", GroupEquivariantLinear="layers", BatchNorm="norms",
+              MLPResNetBlock="blocks", _BasicBlock="blocks", Conv="convs", GroupNorm="gns", LayerNorm="lns",
+              MultiHeadDotProductAttention="attn")
+
+
 def _module_name(flax_name: str, siblings=()) -> str:
     """The port's submodule name of a flax module; ``siblings``, the other
     names of its level, tell an EMLP's invariant head (``TorchLinear_0``
     beside ``EquivariantLinear_i``: ``head``) and a residual block's first
     layer (``TorchLinear_0`` beside ``dense2``: ``dense1``) from an MLP's
-    layer. A diffusion net's ``TorchLinear_i`` beside ``EMLP_0`` is a layer
-    of its time MLP."""
-    if flax_name in ("MLPNet_0", "EMLP_0"):
-        return "net"
-    if flax_name == "LayerNorm_0":  # the one LayerNorm of an MLPResNetBlock
+    layer, and a module's one LayerNorm (``norm``) from several (``lns.i``).
+    A diffusion net's ``TorchLinear_i`` beside ``EMLP_0`` is a layer of its
+    time MLP."""
+    if flax_name in _SINGLE:
+        return _SINGLE[flax_name]
+    if flax_name == "LayerNorm_0" and "LayerNorm_1" not in siblings:
         return "norm"
-    m = re.fullmatch(r"(TorchLinear|BatchNorm|EquivariantLinear|GroupEquivariantLinear|MLPResNetBlock)_(\d+)",
-                     flax_name)
+    m = re.fullmatch(rf"({'|'.join(_LISTS)})_(\d+)", flax_name)
     if not m:
         return flax_name
     if m.group(1) == "TorchLinear" and any("EquivariantLinear" in s for s in siblings):
         return "head"
     if m.group(1) == "TorchLinear" and "dense2" in siblings:
         return "dense1"
-    return f"{dict(BatchNorm='norms', MLPResNetBlock='blocks').get(m.group(1), 'layers')}.{m.group(2)}"
+    return f"{_LISTS[m.group(1)]}.{m.group(2)}"
+
+
+def kernel_to_port(k: np.ndarray) -> np.ndarray:
+    """A flax kernel in the port's layout: Dense [in, out] → [out, in]; Conv
+    HWIO → OIHW; an attention DenseGeneral's 3-D kernel as it is."""
+    if k.ndim == 2:
+        return k.T
+    if k.ndim == 4:
+        return k.transpose(3, 2, 0, 1)
+    return k
+
+
+def kernel_to_flax(w: np.ndarray) -> np.ndarray:
+    """The inverse of ``kernel_to_port``."""
+    if w.ndim == 2:
+        return w.T
+    if w.ndim == 4:
+        return w.transpose(2, 3, 1, 0)
+    return w
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
@@ -113,7 +140,7 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
             elif isinstance(val, dict):
                 walk(val, prefix + [_module_name(key, node)])
             elif key == "kernel":
-                out[".".join(prefix + ["weight"])] = torch.from_numpy(np.array(np.asarray(val).T))
+                out[".".join(prefix + ["weight"])] = torch.from_numpy(np.array(kernel_to_port(np.asarray(val))))
             elif key in ("bias", "scale", "mean", "var", "logstd"):
                 out[".".join(prefix + [key])] = torch.from_numpy(np.array(val))
             else:
@@ -140,6 +167,48 @@ def _flax_path(port_name: str) -> tuple[str, ...]:
             out.append(parts[i])
         i += 1
     return tuple(out)
+
+
+def _flax_list_name(attr: str, idx: str, child: torch.nn.Module) -> str:
+    if attr == "blocks":
+        return f"{'MLPResNetBlock' if type(child).__name__ == 'MLPResNetBlock' else '_BasicBlock'}_{idx}"
+    kind = {v: k for k, v in _LISTS.items() if k not in ("EquivariantLinear", "GroupEquivariantLinear",
+                                                          "MLPResNetBlock")}[attr]
+    return f"{kind}_{idx}"
+
+
+def _flax_single_name(attr: str, child: torch.nn.Module) -> str:
+    if attr == "net":
+        return {"MLPNet": "MLPNet_0", "EMLP": "EMLP_0"}.get(type(child).__name__, "net")
+    if attr in ("dense1", "head"):
+        return "TorchLinear_0"
+    if attr == "norm":
+        return "LayerNorm_0"
+    return {v: k for k, v in _SINGLE.items() if v != "net"}.get(attr, attr)
+
+
+def flax_param_paths(module: torch.nn.Module) -> dict[str, tuple[str, ...]]:
+    """The flax path of each parameter of ``module`` (the inverse of
+    ``params_from_jax``'s names, by the submodules' types): ``encoder.trunk.
+    blocks.2.convs.0.weight`` → ``('encoder', 'ResNet18Trunk_0',
+    '_BasicBlock_2', 'Conv_0', 'kernel')``. Covers the MLP, diffusion,
+    point-cloud and visual modules (an EMLP's layers are not told from a
+    Linear's)."""
+    out = {}
+    for name, _ in module.named_parameters():
+        parts, mod, path, i = name.split("."), module, [], 0
+        while i < len(parts) - 1:
+            child = getattr(mod, parts[i])
+            if isinstance(child, torch.nn.ModuleList):
+                sub = child[int(parts[i + 1])]
+                path.append(_flax_list_name(parts[i], parts[i + 1], sub))
+                mod, i = sub, i + 2
+            else:
+                path.append(_flax_single_name(parts[i], child))
+                mod, i = child, i + 1
+        path.append("kernel" if parts[-1] == "weight" else parts[-1])
+        out[name] = tuple(path)
+    return out
 
 
 def params_from_jax_flat(flat, module: torch.nn.Module) -> dict[str, torch.Tensor]:
@@ -330,7 +399,7 @@ def ma_state_from_jax(tree: dict) -> dict:
 def _onpolicy_parts_from_jax(tree: dict) -> dict:
     return dict(
         **_env_from_jax(tree),
-        value_rms=_rms_from_jax(tree["value_rms"]),
+        **({"value_rms": _rms_from_jax(tree["value_rms"])} if tree.get("value_rms") is not None else {}),
         dones=_tensor(tree["dones"]),
         stats=_stats_from_jax(tree["stats"]),
         counters={k: int(tree[k]) for k in ("env_steps", "update_count")},

@@ -30,10 +30,13 @@ from pql_tpu_torch.utils.trackers import Tracker
 
 class Evaluator:
     def __init__(self, cfg, env: VecEnv, actor_apply: Callable, device: str | torch.device = "cuda"):
-        """actor_apply(actor, normalized_obs) -> deterministic action."""
+        """actor_apply(actor, normalized_obs) -> deterministic action. A
+        visual agent's hook has ``needs_env_state = True`` and also takes
+        the eval env's state, which it renders its observations from."""
         self.cfg = cfg
         self.env = env
         self.actor_apply = actor_apply
+        self._needs_env_state = bool(getattr(actor_apply, "needs_env_state", False))
         self.device = torch.device(device)
         self.start_time = time.time()
 
@@ -58,7 +61,10 @@ class Evaluator:
         cur_len = torch.zeros_like(cur_ret)
         for t in range(env.max_episode_length):
             obs_n = obs_rms.normalize(obs) if self.cfg.algo.obs_norm else obs
-            action = self.actor_apply(actor, obs_n)
+            if self._needs_env_state:
+                action = self.actor_apply(actor, obs_n, env_state)
+            else:
+                action = self.actor_apply(actor, obs_n)
             step_draw = draws["step"][t] if "step" in draws else None
             env_state, obs, reward, done, _info = env.step(env_state, action, draws["reset"][t], step_draw)
             cur_ret = cur_ret + reward

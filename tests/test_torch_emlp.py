@@ -262,7 +262,7 @@ def test_registry_holds_the_equivariant_names():
     assert {"EMLP", "EquivariantMLPNet", "TanhEquivariantMLPPolicy", "DiagGaussianEquivariantMLPPolicy",
             "MLPCriticEquivariant", "DoubleQEquivariant"} <= set(MODEL_REGISTRY)
     assert "EquivariantDiffusionPolicy" in MODEL_REGISTRY  # the diffusion tier (tests/test_torch_ddpm.py)
-    assert "DiffusionPolicy" not in MODEL_REGISTRY  # on the point-cloud Encoder: the vision tier
+    assert "DiffusionPolicy" in MODEL_REGISTRY  # the vision tier's (tests/test_torch_visual_models.py)
 
 
 # ------------------------------------------------------ the raw-weight step

@@ -41,8 +41,11 @@ from chip_smoke import (
     state_diffs,
     step_tol,
     two_agent_reference,
+    vision_module_check,
+    vision_reference,
 )
 from pql_tpu_torch.algos import get_algo
+from pql_tpu_torch.algos.base import set_precision
 from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import make_config
 from pql_tpu_torch.envs import make_eval_env, make_task
@@ -60,8 +63,7 @@ ATOL = 1e-5  # kernel vs plain version, fp32: i·Δz + v_min vs linspace support
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_precision(make_config("pql"))  # fp32: TF32 off for cuBLAS and cuDNN, as train.main sets it
     return torch.device("cuda")
 
 
@@ -638,6 +640,44 @@ def test_eqsd_kill_and_resume_bitwise_on_card(cuda, tmp_path, algo, extra):
     checkpoint.save_checkpoint(str(tmp_path / "state"), s)
     for _ in range(2):
         s, _ = agent.train_iter(s)
+    agent2 = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s2 = checkpoint.load_checkpoint(str(tmp_path / "state"), agent2.init(seed=7))
+    for _ in range(2):
+        s2, _ = agent2.train_iter(s2)
+    assert state_diffs(s, s2) == []
+
+
+@pytest.mark.gpu
+def test_vision_modules_on_card_match_cpu(cuda):
+    """chip_smoke's vision_module_check: every module of the vision tier and
+    the vision tasks' views at 4096 envs, card vs CPU (it raises beyond its
+    tolerances)."""
+    out = vision_module_check(cuda)
+    assert {"ResEncoder", "DINOEncoder", "DiagGaussianMLPVPolicy", "ReacherVision.render"} <= set(out)
+
+
+@pytest.mark.gpu
+def test_vision_tier_on_card_matches_cpu(cuda):
+    """chip_smoke's vision_reference: the modules, two iterations of PPOV and
+    IPPOV card vs CPU, and the DiffusionPolicy sampler at 4096 rows."""
+    out = vision_reference(cuda, "")
+    assert len(out["runs"]) == 2 and out["diffusion_policy_sampler"]["card_vs_cpu_rel_err"] <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo,task", [("ppov", "ReacherVision"), ("ippov", "BimanualReacherVision")])
+def test_vision_agents_iterate_and_resume_bitwise_on_card(cuda, tmp_path, algo, task):
+    """Three iterations at a small size (the ResNet encoder at full width):
+    finite losses, epochs x minibatches updates; a checkpointed state resumed
+    into a fresh agent continues bitwise."""
+    cfg = make_config(algo, task=task, num_envs=64, algo__horizon_len=8, algo__batch_size=128)
+    agent = get_algo(cfg.algo.name)(cfg, device=cuda)
+    s, m = agent.train_iter(agent.init(seed=0))
+    assert all(bool(torch.isfinite(v)) for v in m.values()), m
+    checkpoint.save_checkpoint(str(tmp_path / "state"), s)
+    for _ in range(2):
+        s, _ = agent.train_iter(s)
+    assert (s.update_count, s.env_steps) == (3 * 4 * 4, 3 * 8 * 64)
     agent2 = get_algo(cfg.algo.name)(cfg, device=cuda)
     s2 = checkpoint.load_checkpoint(str(tmp_path / "state"), agent2.init(seed=7))
     for _ in range(2):

@@ -97,6 +97,8 @@ def _reset_draw(env: JVecEnv, k_reset) -> np.ndarray:
         ["algo=ippoteam2", "task=BimanualReacher", "algo.batch_size=16384"],
         ["algo=eqsd", "task=BimanualReacher", "num_envs=4096", "algo.diffusion=true", "algo.diffusion_iter=3"],
         ["algo=eqsd2", "task=BimanualReacherSym", "algo.kl_max=0.5", "algo.kl_decay_iters=200"],
+        ["algo=ppov", "task=ReacherVision", "num_envs=4096", "algo.encoder_weights=trunk.npz"],
+        ["algo=ippov", "task=BimanualReacherVision", "algo.batch_size=16384"],
     ],
 )
 def test_cfg_parse_cli_matches(argv):
@@ -111,9 +113,9 @@ def test_cfg_parse_cli_matches(argv):
 
 def test_cfg_rejects_knobs_the_port_lacks():
     with pytest.raises(AttributeError):
-        tcfg.parse_cli(["algo=pql", "algo.encoder_weights=w.npz"])  # a vision-encoder knob
+        tcfg.parse_cli(["algo=pql", "mesh_axis=env"])  # a multi-device knob
     with pytest.raises(ValueError):
-        tcfg.parse_cli(["algo=ppov"])  # the vision tier is not ported yet
+        tcfg.parse_cli(["algo=ddpgv"])  # the vision tier's off-policy half is not ported yet
 
 
 # ----------------------------------------------------------------- envs

@@ -78,10 +78,12 @@ def rms_tree(r) -> dict:
 
 def onpolicy_tree(s) -> dict:
     """The numpy tree ``ppo_state_from_jax`` / ``ma_state_from_jax`` take,
-    from a numpy JAX PPO, MAPPO, IPPO or EQSC state."""
-    tree = dict(obs_rms=rms_tree(s.obs_rms), value_rms=rms_tree(s.value_rms),
-                env_state=dict(state=dict(s.env_state.state), time=s.env_state.time), obs=s.obs, dones=s.dones,
-                stats=stats_tree(s.stats), env_steps=s.env_steps, update_count=s.update_count)
+    from a numpy JAX PPO, MAPPO, IPPO, EQSC, PPOV or IPPOV state."""
+    tree = dict(obs_rms=rms_tree(s.obs_rms), env_state=dict(state=dict(s.env_state.state), time=s.env_state.time),
+                obs=s.obs, dones=s.dones, stats=stats_tree(s.stats), env_steps=s.env_steps,
+                update_count=s.update_count)
+    if hasattr(s, "value_rms"):  # PPOV's state has none
+        tree["value_rms"] = rms_tree(s.value_rms)
     if hasattr(s, "params"):
         tree.update(params=s.params, opts={k: opt_tree(o) for k, o in s.opts.items()})
         if hasattr(s, "value_rms_left"):  # EQSC's state has one value-rms
@@ -115,7 +117,7 @@ def jax_iteration_draws(jagent, cfg, rng, normals, rows: int) -> dict:
     ``k, k_r, k_l, k_e = split(k, 4)``, handled by ``normals`` taking the
     step's key list); one permutation of ``rows`` per epoch key."""
     _, k, k_perm = jax.random.split(rng, 3)
-    two_hands = type(jagent).__name__ == "IPPO"
+    two_hands = type(jagent).__name__ in ("IPPO", "IPPOV")
     keys = []
     for _ in range(cfg.algo.horizon_len):
         if two_hands:

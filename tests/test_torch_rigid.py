@@ -108,7 +108,8 @@ def _bimanual(symmetric):  # pql_tpu/envs/bimanual.py:92-108: q (k_q), the targe
 
 CLASSIC_DRAWS = {"Pendulum": _pendulum, "PointMass": _point_mass, "Reacher": _reacher, "BallBalance": _ball_balance,
                  "FrankaCubeStack": _franka, "BimanualReacher": _bimanual(False),
-                 "BimanualReacherSym": _bimanual(True)}
+                 "BimanualReacherSym": _bimanual(True), "ReacherVision": _reacher,
+                 "BimanualReacherVision": _bimanual(False)}
 
 
 def jax_reset_draws(task, keys) -> torch.Tensor:

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""How sensitive the diffusion tier's card-vs-CPU checks are to rounding, on the CPU.
+"""How sensitive the diffusion and vision tiers' card-vs-CPU checks are to rounding, on the CPU.
 
     python3 tools/diffusion_conditioning.py --seeds 42 0   # ~1-2 min per seed on 8 cores
+    python3 tools/diffusion_conditioning.py --refs vision --seeds 42 0 1 2
 
 Two measurements, each printed as one JSON line:
 
-1. ``reference_runs``: for each of chip_smoke's ``EQSD_REF`` runs (two
+1. ``reference_runs``: for each of chip_smoke's ``EQSD_REF`` runs
+   (``--refs vision``: ``VISION_REF``, the PPOV and IPPOV runs; two
    iterations at its small size, the draws from a generator seeded 1, as
    ``card_vs_cpu`` makes them) at each ``--seeds`` value, the largest change
    of any network's two-iteration step, relative to the step's norm, when
@@ -13,9 +15,10 @@ Two measurements, each printed as one JSON line:
    ``PERTURBATIONS``. A run whose steps move by more than the card-vs-CPU
    check's 1% under such a change sits on a branch boundary (a PPO clip) and
    cannot tell a fault of the card from rounding.
-2. ``sampler``: both diffusion policies at full width on BimanualReacher's
-   joint reps, 4096 rows, fp32 against float64 on the same draws, relative
-   to 1 + |a|: at their init and with every weight moved by N(0, 0.05²).
+2. ``sampler`` (``--refs eqsd``): both diffusion policies at full width on
+   BimanualReacher's joint reps, 4096 rows, fp32 against float64 on the
+   same draws, relative to 1 + |a|: at their init and with every weight
+   moved by N(0, 0.05²).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import EQSD_REF  # noqa: E402
+from chip_smoke import EQSD_REF, VISION_REF  # noqa: E402
 from pql_tpu_torch.algos import get_algo  # noqa: E402
 from pql_tpu_torch.algos.ma_base import MultiAgentCtx  # noqa: E402
 from pql_tpu_torch.cfg import make_config  # noqa: E402
@@ -41,6 +44,15 @@ from pql_tpu_torch.models.emlp import concat_reps  # noqa: E402
 from pql_tpu_torch.ops.ddpm import draw_sample  # noqa: E402
 
 PERTURBATIONS = (1e-7, -1e-7, 3e-7)
+
+
+REFS = {"eqsd": EQSD_REF, "vision": VISION_REF}
+
+
+def _nets(agent, state) -> dict[str, torch.nn.Module]:
+    """Each network of the state, as ``card_vs_cpu`` holds them."""
+    actor, critic = agent.snapshot_parts(state)
+    return dict(actor) if isinstance(actor, torch.nn.ModuleDict) else {"actor": actor, "critic": critic}
 
 
 def _flat(nets) -> dict[str, torch.Tensor]:
@@ -54,20 +66,21 @@ def _two_iterations(cfg, eps: float) -> tuple[dict, dict]:
     state = agent.init()
     z = torch.Generator().manual_seed(5)
     with torch.no_grad():
-        for p in state.nets.parameters():
-            p.mul_(1 + eps * torch.randn(p.shape, generator=z))
-    theta0 = _flat(state.nets)
+        for m in _nets(agent, state).values():
+            for p in m.parameters():
+                p.mul_(1 + eps * torch.randn(p.shape, generator=z))
+    theta0 = _flat(_nets(agent, state))
     gen = torch.Generator().manual_seed(1)
     for _ in range(2):
         state, _ = agent.train_iter(state, agent.draw_iteration(gen))
-    return theta0, _flat(state.nets)
+    return theta0, _flat(_nets(agent, state))
 
 
-def reference_runs(seeds) -> dict:
+def reference_runs(seeds, refs=EQSD_REF) -> dict:
     out = {}
     for seed in seeds:
-        for algo, kwargs in EQSD_REF:
-            cfg = make_config(algo, **dict(kwargs, seed=seed))
+        for algo, kwargs in refs:
+            cfg = make_config(algo, **dict(kwargs, seed=kwargs.get("seed", 42) if seed is None else seed))
             theta0, base = _two_iterations(cfg, 0.0)
             worst = {}
             for eps in PERTURBATIONS:
@@ -75,7 +88,7 @@ def reference_runs(seeds) -> dict:
                 for k in base:
                     rel = float((moved[k] - base[k]).norm() / (base[k] - theta0[k]).norm())
                     worst[k] = max(worst.get(k, 0.0), rel)
-            label = f"seed {seed} {algo}" + (" diffusion" if kwargs.get("algo__diffusion") else "") + (
+            label = f"seed {cfg.seed} {algo}" + (" diffusion" if kwargs.get("algo__diffusion") else "") + (
                 " plain" if kwargs.get("algo__act_class") == "DiagGaussianMLPPolicy" else "")
             out[label] = worst
             print(json.dumps({"run": label, "largest_step_change": worst}), file=sys.stderr, flush=True)
@@ -111,10 +124,14 @@ def sampler(rows: int = 4096) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seeds", type=int, nargs="+", default=[42, 0])
+    ap.add_argument("--seeds", type=int, nargs="+",
+                    help="the runs' seeds (default: 42 and 0 for eqsd, each run's own for vision)")
+    ap.add_argument("--refs", choices=sorted(REFS), default="eqsd")
     args = ap.parse_args()
-    print(json.dumps({"reference_runs": reference_runs(args.seeds), "perturbations": PERTURBATIONS}))
-    print(json.dumps({"sampler": sampler()}))
+    seeds = args.seeds or ([42, 0] if args.refs == "eqsd" else [None])
+    print(json.dumps({"reference_runs": reference_runs(seeds, REFS[args.refs]), "perturbations": PERTURBATIONS}))
+    if args.refs == "eqsd":
+        print(json.dumps({"sampler": sampler()}))
 
 
 if __name__ == "__main__":
