@@ -171,11 +171,31 @@ line each:
    env's state) and a checkpoint at iteration 2, resumed to 3 bitwise equal
    to an uninterrupted run, the checkpoint's bytes and save and load seconds.
 
+38. ddpgv_reference — the port's host ring built on this machine, its
+   gather bitwise numpy fancy indexing at ``default_rng(0)``'s indices, the
+   pinned-staging gather and host-to-device copies bitwise the CPU batch;
+   the warm-up and two iterations of DDPGV at ``DDPGV_REF``'s size card vs
+   CPU (``card_vs_cpu``, at the seed tools/diffusion_conditioning.py
+   measures as well-conditioned);
+39. ddpgv_main_path — ``algo=ddpgv task=ReacherVision num_envs=4096`` at the
+   preset (batch 8192, 4 updates per iteration, memory 5e6: host ring 1220 ×
+   4096 × 28,200 B, ~140.9 GB of virtual host memory): ms/iter, device ms
+   and busy share, the render's ms per step, the gather, copy and write
+   ms of the host hop, peak device memory, host RSS and threads;
+40. ddpgv_entry_path — ``train.main algo=ddpgv`` @4096: an eval of 150
+   rendering envs and a checkpoint at iteration 2, the checkpoint restored
+   bitwise, the resume as the JAX package defines it (no ring in the state,
+   no warm-up, the ring refilled);
+41. dist_one_rank — PQL-D Cartpole @4096 through ``parallel.initialize``
+   with a one-rank NCCL group: bitwise equal to the run without a group, 8
+   ``c51_td_target`` launches per iteration, the all-reduce of the critic's
+   gradient timed.
+
 ``--entry`` runs ``ENTRY_RUNS`` instead: PPO Ant, IPPO and PPOV
 ReacherVision through ppo_entry_path, IDDPG at its full preset (ring 5e6)
 through baseline_entry_path.
 
-Each main path, and each of phases 11, 12, 14, 16-18 and 20-37, resets the
+Each main path, and each of phases 11, 12, 14, 16-18 and 20-41, resets the
 kernels' launch counts just before it drives the port and reads them just
 after (0 ``c51_td_target`` launches on every on-policy path). Then the ``{"kernels": [...]}`` line, the nvidia-smi
 line, and last
@@ -384,6 +404,12 @@ VISION_REF = [("ppov", dict(task="ReacherVision", num_envs=16, algo__horizon_len
                             algo__update_times=1, seed=3)),
               ("ippov", dict(task="BimanualReacherVision", num_envs=8, algo__horizon_len=4, algo__batch_size=32,
                              algo__update_times=1, seed=0))]
+# DDPGV card vs CPU: one update per iteration at a seed that
+# tools/diffusion_conditioning.py --refs vision measures as well-conditioned
+# under a change of the weights and of the rendered frames (seed 3: 0.28% and
+# 0.063% of the actor's step; seed 0 moved 4.3% card vs CPU, PERF.md §6)
+DDPGV_REF = [("ddpgv", dict(task="ReacherVision", num_envs=16, algo__horizon_len=2, algo__batch_size=64,
+                            algo__memory_size=1024, algo__update_times=1, seed=3))]
 VISION_PATHS = [(("algo=ppov", "task=ReacherVision", "num_envs=4096"), (1, 1, 2, 1)),
                 (("algo=ippov", "task=BimanualReacherVision", "num_envs=4096"), (1, 1, 2, 1))]
 TRUNK_OPS = r"convolution|group_norm|max_pool2d"  # the ops of the ResNet trunk alone (the other nets have none)
@@ -391,6 +417,16 @@ RENDER_REPS = 5
 VISION_ENTRY_ARGV = ("algo=ppov", "task=ReacherVision", "num_envs=4096")
 VISION_ENTRY_ITERS = (2, 3)  # an eval and a checkpoint at 2, resumed to 3 (~7.7 s per iteration)
 VISION_ENTRY_FREQ = 2
+# the vision tier's off-policy half and multi-process PQL
+DDPGV_ARGV = ("algo=ddpgv", "task=ReacherVision", "num_envs=4096")  # batch 8192, 4 updates, memory 5e6
+DDPGV_DEPTH = (1, 2, 3, 2)  # warm, blocks x iterations timed, profiled: 9 iterations after the warm-up
+DDPGV_ROW_BYTES = 28200  # one (slot, env) row of the host ring: two 13,824-byte frames and the fp16 rows
+HOP_REPS = 5  # timed gathers and copies of the host hop
+DDPGV_ENTRY_ITERS = (2, 4)  # an eval and a checkpoint at 2; the resumed run stops at env step 5 x E
+RING_CHECK = (8, 64, 512)  # slots, envs, batch of the host ring's check against numpy
+DIST_ARGV = ("algo=pql_d", "task=Cartpole", "num_envs=4096")
+DIST_ITERS = 3
+ALLREDUCE_REPS = 20
 PPO_ENTRY_ARGV = ("algo=ppo", "task=Cartpole")  # 4096 envs, horizon 16, batch 32768, 4 epochs
 PPO_ENTRY_ITERS = (8, 12)  # the first run stops after 8 iterations, the resumed one after 12
 PPO_ENTRY_EVAL_FREQ = 4  # and the checkpoint period
@@ -2400,6 +2436,391 @@ def vision_main_path(dev, smi: str) -> dict:
     return out
 
 
+def host_ring_check(dev) -> dict:
+    """The port's ``HostReplay`` built here: a ring of ``RING_CHECK`` slots
+    × envs written past its end, three batches bitwise equal to numpy fancy
+    indexing of a mirror at ``default_rng(0)``'s (slot, env) draws; then two
+    DDPGV agents (``DDPGV_REF``'s size) on the card and on the CPU with the
+    same rows in their rings: three batches through the card's pinned
+    staging sets and host-to-device copies bitwise equal to the CPU's."""
+    import numpy as np
+    import torch
+    from pql_tpu_torch.algos.ddpgv import DDPGV
+    from pql_tpu_torch.cfg import make_config
+    from pql_tpu_torch.native import HostReplay, library_path
+
+    slots, E, B = RING_CHECK
+    rng = np.random.default_rng(0)
+    fields, dtypes = {"img": 13824, "obs": 20, "done": 1}, {"img": np.uint8, "obs": np.float16, "done": np.float16}
+    rows = {k: (rng.integers(0, 256, (slots + 3, E, d), dtype=np.uint8) if dtypes[k] == np.uint8
+                else rng.normal(size=(slots + 3, E, d)).astype(dtypes[k])) for k, d in fields.items()}
+    ring = HostReplay(slots, E, fields, dtypes)
+    ring.add({k: v[:slots] for k, v in rows.items()})
+    ring.add({k: v[slots:] for k, v in rows.items()})  # wraps: slots 0-2 rewritten
+    mirror = {k: np.concatenate([v[slots:], v[3:slots]]) for k, v in rows.items()}
+    draw = np.random.default_rng(0)
+    for _ in range(3):
+        got = ring.sample(B)
+        slot, env = draw.integers(0, slots, B, dtype=np.int64), draw.integers(0, E, B, dtype=np.int64)
+        for k in fields:
+            check(np.array_equal(got[k], mirror[k][slot, env]), f"host ring gather of {k} differs from numpy")
+    cfg = make_config("ddpgv", **DDPGV_REF[0][1])
+    agents = {d: DDPGV(cfg, device=d) for d in ("cpu", dev)}
+    chunk = {k: (rng.integers(0, 256, (3, cfg.num_envs, d), dtype=np.uint8) if agents["cpu"].replay.dtypes[k] == np.uint8
+                 else rng.normal(size=(3, cfg.num_envs, d)).astype(np.float16))
+             for k, d in agents["cpu"].replay.fields.items()}
+    for a in agents.values():
+        a.replay.add(chunk)
+    for u in range(3):  # both staging sets, the first one twice
+        got, want = agents[dev].fetch_batch(u), agents["cpu"].fetch_batch(u)
+        for k in want:
+            check(got[k].device.type == "cuda" and torch.equal(got[k].cpu(), want[k]),
+                  f"pinned gather + copy of {k} differs from the CPU batch")
+    staged = agents[dev]._staging_set(0)[0]
+    check(all(t.is_pinned() for t in staged.values()), "the staging buffers are not pinned")
+    return dict(library=str(library_path().relative_to(os.path.dirname(os.path.abspath(__file__)))),
+                gather_bitwise_numpy=True, indices_bitwise_default_rng=True, pinned_h2d_bitwise_cpu=True,
+                ring=list(RING_CHECK))
+
+
+def ddpgv_reference(dev, smi: str) -> dict:
+    """The host ring on this machine (``host_ring_check``) and the warm-up
+    and two iterations of DDPGV at ``DDPGV_REF``'s size card vs CPU
+    (``card_vs_cpu``: steps within 1% of their norms, losses 1e-3); the
+    kernels' launch counts are reset before and read after."""
+    from pql_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    ring = host_ring_check(dev)
+    runs = card_vs_cpu(dev, DDPGV_REF)
+    return dict(config=[f"{a} {k}" for a, k in DDPGV_REF], card=smi, host_ring=ring, runs=runs,
+                launches=dict(kernels.LAUNCHES))
+
+
+def _proc_status(key: str) -> int:
+    with open("/proc/self/status") as f:
+        return next(int(line.split()[1]) for line in f if line.startswith(key + ":"))
+
+
+def host_memory() -> dict:
+    """The host's memory and overcommit policy, as ``free`` and
+    /proc/sys/vm/overcommit_memory report them (GB)."""
+    with open("/proc/meminfo") as f:
+        info = {line.split(":")[0]: int(line.split()[1]) for line in f}
+    with open("/proc/sys/vm/overcommit_memory") as f:
+        policy = int(f.read())
+    gb = lambda key: info[key] / 1e6 if key in info else None  # noqa: E731
+    return dict(mem_total_gb=gb("MemTotal"), mem_available_gb=gb("MemAvailable"), commit_limit_gb=gb("CommitLimit"),
+                committed_gb=gb("Committed_AS"), overcommit_memory=policy)
+
+
+def host_hop(agent, state) -> dict:
+    """DDPGV's host hop at the run's sizes, each part alone: the gather of
+    one batch into a pinned staging set (host clock, median of
+    ``HOP_REPS``), its copies to the card (CUDA events) and one collect's
+    copies back (host clock to the card's end), and the ring write."""
+    import statistics
+
+    import torch
+
+    dev = agent.device
+    B = agent.cfg.algo.batch_size
+    host, _ = agent._staging_set(0)
+    gather, h2d = [], []
+    for _ in range(HOP_REPS):
+        t0 = time.perf_counter()
+        agent.replay.sample(B, out=host)
+        gather.append(1e3 * (time.perf_counter() - t0))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        batch = {k: v.to(dev, non_blocking=True) for k, v in host.items()}
+        end.record()
+        torch.cuda.synchronize()
+        h2d.append(start.elapsed_time(end))
+    batch_bytes = sum(v.numel() * v.element_size() for v in batch.values())
+    traj = agent.collect(state, agent.draw_iteration(state.gen))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = agent.to_host(traj)
+    d2h_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    agent.replay.add(rows)
+    write_ms = 1e3 * (time.perf_counter() - t0)
+    h2d_ms = statistics.median(h2d)
+    return dict(batch_rows=B, batch_bytes=batch_bytes, gather_ms=statistics.median(gather), gather_ms_all=gather,
+                h2d_ms=h2d_ms, h2d_gb_per_s=batch_bytes / h2d_ms / 1e6, h2d_ms_all=h2d,
+                collect_bytes=sum(v.numel() * v.element_size() for v in rows.values()), d2h_ms=d2h_ms,
+                ring_write_ms=write_ms,
+                hop_ms_per_iter=agent.update_times * (statistics.median(gather) + h2d_ms) + d2h_ms + write_ms)
+
+
+def ddpgv_main_path(dev, smi: str) -> dict:
+    """DDPGV on ReacherVision @4096 at its preset (batch 8192, 4 updates per
+    iteration, horizon 1, memory 5e6: host ring 1220 × 4096 × 28,200 B, the
+    ResNet actor at full width, fp32): the warm-up and ``DDPGV_DEPTH``
+    iterations, ms/iter in timed blocks, device ms and busy share from a
+    profiled window, the render's ms per step, the host hop
+    (``host_hop``), peak device memory, host RSS and threads, and the host's
+    memory as the ring was made."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pql_tpu_torch.algos import get_algo
+    from pql_tpu_torch.cfg import parse_cli
+    from pql_tpu_torch.ops import kernels
+
+    warm_iters, blocks, block_iters, profiled_iters = DDPGV_DEPTH
+    cfg = parse_cli(list(DDPGV_ARGV))
+    E, label = cfg.num_envs, "DDPGV ReacherVision@4096"
+    mem = host_memory()
+    threads0 = len(os.listdir("/proc/self/task"))
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    agent = get_algo(cfg.algo.name)(cfg, device=dev)
+    ring = agent.replay
+    ring_gb = ring.slots * E * DDPGV_ROW_BYTES / 1e9
+    check(sum(d * ring.dtypes[k].itemsize for k, d in ring.fields.items()) == DDPGV_ROW_BYTES,
+          f"{label}: ring row of {DDPGV_ROW_BYTES} bytes expected")
+    threads_ring = len(os.listdir("/proc/self/task"))
+    state = agent.init()
+    state, _ = agent.warmup(state)
+    losses, block_ms = [], []
+
+    def run(n):
+        nonlocal state
+        for _ in range(n):
+            state, m = agent.train_iter(state)
+            losses.append(torch.stack([m["train/critic_loss"], m["train/actor_loss"]]))
+
+    run(warm_iters)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for _ in range(blocks):
+        t1 = time.perf_counter()
+        run(block_iters)
+        torch.cuda.synchronize()
+        block_ms.append(1e3 * (time.perf_counter() - t1) / block_iters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        run(profiled_iters)
+        torch.cuda.synchronize()
+        profiled_wall_ms = 1e3 * (time.perf_counter() - t1) / profiled_iters
+    launches = dict(kernels.LAUNCHES)
+    iters = warm_iters + blocks * block_iters + profiled_iters
+    lo = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(lo).all()), f"non-finite loss on the {label} path")
+    check(state.update_count == cfg.algo.update_times * iters == 4 * iters,
+          f"{label}: {state.update_count} updates after {iters} iterations")
+    check(state.env_steps == (1 + iters) * E and ring.filled == 1 + iters,
+          f"{label}: env steps {state.env_steps}, ring filled {ring.filled} after the warm-up and {iters}")
+    trackers = {n: float(getattr(state, n).mean()) for n in ("return_tracker", "len_tracker")}
+    check(all(math.isfinite(v) for v in trackers.values()), f"{label} trackers {trackers}")
+    check(launches["c51_td_target"] == 0, f"{label}: c51_td_target launched")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kernel_rows = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA
+                   and not getattr(r, "is_user_annotation", False)]
+    device_ms = sum(_self_device_us(r) for r in kernel_rows) / 1e3 / profiled_iters
+    task, st = agent.env.task, state.env_state.state
+    task.render(st)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(RENDER_REPS):
+        task.render(st)
+    end.record()
+    torch.cuda.synchronize()
+    render_ms = start.elapsed_time(end) / RENDER_REPS
+    hop = host_hop(agent, state)
+    ms = statistics.median(block_ms)
+    return dict(
+        config=" ".join(DDPGV_ARGV) + f" (batch {cfg.algo.batch_size}, update_times {cfg.algo.update_times}, "
+                                      f"horizon {cfg.algo.horizon_len}, memory {cfg.algo.memory_size:g}, fp32)",
+        card=smi, host_memory=mem, ring=[ring.slots, E, DDPGV_ROW_BYTES], ring_virtual_gb=ring_gb,
+        ring_written_gb=ring.filled * E * DDPGV_ROW_BYTES / 1e9, iterations=iters, setup_s=setup_s,
+        ms_per_iter=ms, env_steps_per_s=1e3 * E / ms, block_ms_per_iter=block_ms,
+        critic_loss_last=float(lo[-1][0]), actor_loss_last=float(lo[-1][1]), update_count=state.update_count,
+        trackers=trackers, profiled_wall_ms_per_iter=profiled_wall_ms, device_ms_per_iter=device_ms,
+        device_busy_share=device_ms / profiled_wall_ms, render_ms_per_step=render_ms, host_hop=hop,
+        peak_mem_gb=peak_gb, host_rss_gb=_proc_status("VmRSS") / 1e6,
+        threads=dict(before_ring=threads0, after_ring=threads_ring, now=len(os.listdir("/proc/self/task")),
+                     cpu_count=os.cpu_count(), ring_fields=len(ring.fields)),
+        launches=launches)
+
+
+def ddpgv_entry_path(dev, smi: str, argv=DDPGV_ARGV, iters=DDPGV_ENTRY_ITERS) -> dict:
+    """``train.main`` with ``argv`` for ``iters[0]`` iterations: an eval of
+    ``eval_num_envs`` rendering envs and a full checkpoint at the last one,
+    the best model; the checkpoint restored into a fresh agent bitwise
+    (params, optimizers, normalizer: DDPGV's state holds no ring); then
+    ``train_baseline`` resumes it as the JAX package does (no warm-up, an
+    empty ring refilled one collect per iteration, ``_resumed_iter`` counting
+    from ``warm_up`` × E) and stops after env step (1 + iters[1]) × E."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+    from pql_tpu_torch import train
+    from pql_tpu_torch.algos import get_algo
+    from pql_tpu_torch.cfg import parse_cli
+    from pql_tpu_torch.ops import kernels
+    from pql_tpu_torch.utils import checkpoint
+    from pql_tpu_torch.utils.logging import RunLogger
+
+    root = os.path.join(SMOKE_DIR, "ddpgv_entry")
+    shutil.rmtree(root, ignore_errors=True)
+    first, total = iters
+    cfg = parse_cli(list(argv))
+    E = cfg.num_envs
+    common = list(argv) + [f"algo.eval_freq={first}", "algo.log_freq=1", f"checkpoint_freq={first}",
+                           f"logging.out_dir={root}/runs", "logging.console=false", f"checkpoint_dir={root}/ckpt"]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    train.main(common + [f"max_step={(1 + first) * E - 1}", "logging.run_name=first", f"--device={dev}"])
+    torch.cuda.synchronize()
+    wall_first = time.perf_counter() - t0
+    run_dir = os.path.join(root, "runs", "first")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    evals = [r for r in recs if "eval/return" in r]
+    check([r["step"] for r in evals] == [(1 + first) * E] and math.isfinite(evals[0]["eval/return"]),
+          f"eval records {[(r['step'], r['eval/return']) for r in evals]}, predicted one at {(1 + first) * E}")
+    ckpt = os.path.join(root, "ckpt", "state")
+    ckpt_file = os.path.join(ckpt, checkpoint.STATE_FILE)
+    check(os.path.exists(ckpt_file) and os.path.exists(os.path.join(run_dir, "best_model", checkpoint.SNAPSHOT_FILE)),
+          "the checkpoint or the best model is missing")
+    saved = torch.load(ckpt_file, map_location="cpu", weights_only=True)
+    check("replay" not in saved, "a DDPGV checkpoint holds a ring")
+    fresh = get_algo(cfg.algo.name)(cfg, device=dev)
+    t1 = time.perf_counter()
+    restored = checkpoint.load_checkpoint(ckpt, fresh.init(seed=cfg.seed + 1))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    now = checkpoint.state_dict(restored)
+    for name in ("actor", "critic", "critic_target", "actor_opt", "critic_opt", "obs_rms"):
+        diffs = []
+
+        def walk(x, y, path):
+            if isinstance(x, dict):
+                for k in x:
+                    walk(x[k], y[k], f"{path}.{k}")
+            elif torch.is_tensor(x):
+                if not torch.equal(x.cpu(), y):
+                    diffs.append(path)
+            elif x != y:
+                diffs.append(path)
+
+        walk(now[name], saved[name], name)
+        check(not diffs, f"restored {name} differs from the saved one in {diffs[:4]}")
+    check(fresh.replay.filled == 0, "a fresh agent's ring is not empty")
+    del fresh, restored
+    torch.cuda.empty_cache()
+
+    c = parse_cli(common + [f"max_step={(1 + total) * E - 1}", "logging.run_name=second"])
+    logger = RunLogger(c)
+    out = io.StringIO()
+    t1 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            agent, resumed = train.train_baseline(c, logger, dev)
+    finally:
+        logger.close()
+    wall_resumed = time.perf_counter() - t1
+    check(f"at env step {(1 + first) * E} (no warm-up)" in out.getvalue(), f"no resume: {out.getvalue()[-200:]!r}")
+    check(agent.replay.filled == total - first and resumed.env_steps == (1 + total) * E,
+          f"the resumed ring holds {agent.replay.filled} slots, env steps {resumed.env_steps}")
+    check(train._resumed_iter(c, resumed, True) == max(0, 1 + total - cfg.algo.warm_up),
+          "the resumed iteration count does not follow the JAX package's rule")
+    launches = dict(kernels.LAUNCHES)
+    ckpt_bytes = os.path.getsize(ckpt_file)
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(config=" ".join(argv) + f" (eval_num_envs {cfg.eval_num_envs}, memory {cfg.algo.memory_size:g})",
+                card=smi, iterations_first=first, env_step_resumed_at=(1 + first) * E,
+                iterations_after_resume=total - first, eval_return=evals[0]["eval/return"],
+                restored_bitwise=True, ring_filled_after_resume=total - first,
+                resumed_iteration_count=train._resumed_iter(c, resumed, True), checkpoint_bytes=ckpt_bytes,
+                checkpoint_load_s=load_s, wall_s_first=wall_first, wall_s_resumed=wall_resumed, launches=launches)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_one_rank(dev, smi: str, argv=DIST_ARGV, iters: int = DIST_ITERS) -> dict:
+    """PQL-D through ``parallel.initialize`` with a one-rank NCCL group
+    (``num_devices=1``, ``dist.num_processes=1``, ``dist.process_id=0``):
+    the warm-up and ``iters`` iterations bitwise equal to the same run
+    without a process group, ``c51_td_target`` 8 launches per iteration,
+    ``update_sharded`` on the group within ``EQ_TOL`` of ``update`` (on the
+    card ``update`` divides by Python scalars, which CUDA does as a multiply
+    by the reciprocal, and ``update_sharded`` by tensors), and the CUDA-event
+    time of an all-reduce of the critic's gradient (one flat fp32 tensor)."""
+    import torch
+    import torch.distributed as dist
+    from pql_tpu_torch import parallel
+    from pql_tpu_torch.algos.pql import PQL
+    from pql_tpu_torch.cfg import parse_cli
+    from pql_tpu_torch.ops import kernels
+    from pql_tpu_torch.ops.running_norm import RunningMeanStd
+
+    keys = ["num_devices=1", "dist.num_processes=1", "dist.process_id=0",
+            f"dist.coordinator_address=localhost:{free_port()}"]
+
+    def run():
+        agent = PQL(parse_cli(list(argv) + keys), device=dev)
+        state, _ = agent.warmup(agent.init())
+        for _ in range(iters):
+            state, _ = agent.train_iter(state)
+        torch.cuda.synchronize()
+        return state
+
+    check(not dist.is_initialized(), "a process group is already up")
+    alone = run()
+    t0 = time.perf_counter()
+    check(parallel.initialize(parse_cli(list(argv) + keys), dev), "no process group")
+    init_s = time.perf_counter() - t0
+    try:
+        check(dist.get_backend() == "nccl" and parallel.world_size() == 1, f"backend {dist.get_backend()}")
+        kernels.reset_launches()
+        grouped = run()
+        launches = dict(kernels.LAUNCHES)
+        diffs = state_diffs(alone, grouped)
+        check(not diffs, f"the one-rank group's run differs from the run without a group in {diffs[:8]}")
+        check(launches["c51_td_target"] == 8 * iters, f"c51_td_target launched {launches['c51_td_target']} times")
+        x = torch.randn(4096, 4, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        a, b = RunningMeanStd((4,), device=dev), RunningMeanStd((4,), device=dev)
+        a.update(x)
+        b.update_sharded(x)
+        rms_err = max(_rel_err(getattr(b, k), getattr(a, k).cpu()) for k in ("mean", "var", "count"))
+        check(rms_err <= EQ_TOL, f"update_sharded on one rank {rms_err:.3g} from update")
+        flat = torch.cat([p.detach().reshape(-1) for p in grouped.critic.parameters()])
+        for _ in range(3):
+            dist.all_reduce(flat)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(ALLREDUCE_REPS):
+            dist.all_reduce(flat)
+        end.record()
+        torch.cuda.synchronize()
+        allreduce_ms = start.elapsed_time(end) / ALLREDUCE_REPS
+    finally:
+        parallel.shutdown()
+    return dict(config=" ".join(argv) + " " + " ".join(keys[:3]), card=smi, iterations=iters, init_s=init_s,
+                bitwise_equal_without_group=True, update_sharded_rel_err=rms_err, launches=launches,
+                critic_grad_bytes=flat.numel() * 4,
+                allreduce_ms=allreduce_ms, backend="nccl", world_size=1)
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -2509,6 +2930,16 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="vision_main_path", wall_s=s, **vmain))
     ventry, s = timed(ppo_entry_path, dev, smi, VISION_ENTRY_ARGV, VISION_ENTRY_ITERS, VISION_ENTRY_FREQ)
     emit(dict(phase="vision_entry_path", wall_s=s, **ventry))
+    gref, s = timed(ddpgv_reference, dev, smi)
+    emit(dict(phase="ddpgv_reference", wall_s=s, **gref))
+    torch.cuda.empty_cache()
+    gmain, s = timed(ddpgv_main_path, dev, smi)
+    emit(dict(phase="ddpgv_main_path", wall_s=s, **gmain))
+    torch.cuda.empty_cache()
+    gentry, s = timed(ddpgv_entry_path, dev, smi)
+    emit(dict(phase="ddpgv_entry_path", wall_s=s, **gentry))
+    one_rank, s = timed(dist_one_rank, dev, smi)
+    emit(dict(phase="dist_one_rank", wall_s=s, **one_rank))
 
     by_path = {"pql_d Cartpole@4096": main["launches"], "pql_d AllegroHand@16384": allegro_d["launches"],
                "pql_d Cartpole@4096 entry point": entry["launches"],
@@ -2532,7 +2963,11 @@ def main(argv: list[str]) -> int:
                "algo=eqsd algo.diffusion=true BimanualReacher@4096 entry point": dentry["launches"],
                "vision card-vs-CPU reference runs": vref["launches"],
                **{f"{name} (vision tier)": r["launches"] for name, r in vmain["runs"].items()},
-               "algo=ppov ReacherVision@4096 entry point": ventry["launches"]}
+               "algo=ppov ReacherVision@4096 entry point": ventry["launches"],
+               "ddpgv card-vs-CPU reference runs": gref["launches"],
+               "algo=ddpgv ReacherVision@4096": gmain["launches"],
+               "algo=ddpgv ReacherVision@4096 entry point": gentry["launches"],
+               "pql_d Cartpole@4096 one-rank NCCL group": one_rank["launches"]}
     emit({"kernels": [
         dict(name=c["name"], route="cuda", source=kernels.KERNELS[c["name"]]["source"],
              replaces=kernels.KERNELS[c["name"]]["replaces"],

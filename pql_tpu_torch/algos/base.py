@@ -25,12 +25,6 @@ from pql_tpu_torch.replay.nstep import FIELDS
 from pql_tpu_torch.utils.trackers import EpisodeStats
 
 
-def check_one_device(cfg) -> None:
-    """Refuse a multi-device run: the port runs on one device so far."""
-    if (cfg.num_devices or 1) != 1:
-        raise NotImplementedError(f"num_devices={cfg.num_devices!r} is not ported yet (only 1)")
-
-
 class ActorCriticAgent:
     """What the loop and the services take from an agent's state: the
     networks its eval hook runs, and the best-model snapshot's actor and
@@ -225,8 +219,11 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
 
 
 def optimizer_step(opt: torch.optim.Optimizer, params: list[torch.Tensor],
-                   grads: list[torch.Tensor], max_grad_norm: float | None) -> None:
-    """Clip (if max_grad_norm is set), then one AdamW step with ``grads``."""
+                   grads: list[torch.Tensor], max_grad_norm: float | None, reduce=None) -> None:
+    """``reduce(grads)`` in place if given (PQL's mean over the ranks), clip
+    (if max_grad_norm is set), then one AdamW step with ``grads``."""
+    if reduce is not None:
+        reduce(grads)
     if max_grad_norm is not None:
         clip_by_global_norm_(grads, max_grad_norm)
     for p, g in zip(params, grads):
@@ -235,10 +232,10 @@ def optimizer_step(opt: torch.optim.Optimizer, params: list[torch.Tensor],
 
 
 def descend(opt: torch.optim.Optimizer, params: list[torch.Tensor], loss: torch.Tensor,
-            max_grad_norm: float | None) -> torch.Tensor:
+            max_grad_norm: float | None, reduce=None) -> torch.Tensor:
     """One optimizer step on ``loss``'s gradients w.r.t. ``params`` alone
     (other parameters the loss reads get none); returns the detached loss."""
-    optimizer_step(opt, params, list(torch.autograd.grad(loss, params)), max_grad_norm)
+    optimizer_step(opt, params, list(torch.autograd.grad(loss, params)), max_grad_norm, reduce)
     return loss.detach()
 
 

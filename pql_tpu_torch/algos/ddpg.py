@@ -66,7 +66,6 @@ class OffPolicyState:
 
 def check_supported(cfg) -> None:
     """Fail on options the port does not implement yet."""
-    base.check_one_device(cfg)
     if cfg.algo.noise.type not in ("mixed", "fixed"):
         raise ValueError(f"unknown algo.noise.type {cfg.algo.noise.type!r}")
 

@@ -85,7 +85,6 @@ class PPO(base.ActorCriticAgent):
     name = "PPO"
 
     def __init__(self, cfg, device: str | torch.device = "cuda"):
-        base.check_one_device(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.env = make_env(cfg)

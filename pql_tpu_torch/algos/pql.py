@@ -1,4 +1,5 @@
-"""PQL and PQL-D on one GPU (port of pql_tpu/algos/pql.py:365-620).
+"""PQL and PQL-D on one GPU or several (port of pql_tpu/algos/pql.py:103-121,
+365-620).
 
 One iteration, exactly as the JAX package's fused step orders it:
 
@@ -30,6 +31,23 @@ update counts between iterations (the adaptive ratio controller's lever).
 Every random number of one call comes from ``draw_iteration``; ``warmup``
 and ``train_iter`` take such a dict (the parity tests hand in the JAX
 package's draws) or draw from the state's own ``torch.Generator``.
+
+**Several ranks** (``num_devices`` = the world size of a process group made
+by ``parallel.initialize``; one process per GPU): each rank holds the slice
+[rank·e_local, (rank+1)·e_local) of the env axis (``parallel.ENV_AXIS_FIELDS``:
+env state, obs, n-step FIFO, replay ring, episode accumulators) and a
+replica of the rest. The sim-phase draws are made for the global env axis
+on every rank's generator and sliced, and the mixed noise's std ladder runs
+over global env indices, so the simulated stream does not depend on the
+world size; the obs-rms merges the ranks' moments (``update_sharded``). The
+learner draws are made at the global batch, and each rank takes its own
+columns (index draws over its e_local envs; with ``sample_slots`` every rank
+takes the same window draws over its own envs), so every generator stays
+level. Each rank samples its own replay at ``batch_local`` rows (the C51
+kernel at [batch_local, 51]); gradients are averaged over the ranks before
+the clip and the AdamW step, and the phases' losses after them; the episode
+events are gathered before the trackers. One rank runs exactly the one-GPU
+path, without a collective.
 """
 
 from __future__ import annotations
@@ -38,17 +56,19 @@ import copy
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from pql_tpu_torch.algos import base
-from pql_tpu_torch.envs import make_env
-from pql_tpu_torch.envs.base import VecEnvState, handle_timeout
+from pql_tpu_torch.envs import make_task
+from pql_tpu_torch.envs.base import VecEnv, VecEnvState, handle_timeout
 from pql_tpu_torch.ops.distributional import binary_cross_entropy
 from pql_tpu_torch.ops.kernels import c51_td_target, c51_td_target_plain
 from pql_tpu_torch.ops.noise import add_mixed_normal_noise, add_normal_noise
 from pql_tpu_torch.ops.running_norm import RunningMeanStd
 from pql_tpu_torch.ops.schedules import schedule_value
 from pql_tpu_torch.ops.soft_update import soft_update
+from pql_tpu_torch.parallel import make_mesh, replicate
 from pql_tpu_torch.replay import NStepState, ReplayBuffer, create_nstep, nstep_scan, replay_slots
 from pql_tpu_torch.replay.buffer import draw_sample_indices, draw_window_indices, window_fits
 from pql_tpu_torch.replay.nstep import FIELDS
@@ -67,9 +87,9 @@ class PQLState:
     obs: torch.Tensor
     nstep: NStepState
     replay: ReplayBuffer
-    cur_returns: torch.Tensor  # [E]
-    cur_lengths: torch.Tensor  # [E]
-    return_tracker: Tracker
+    cur_returns: torch.Tensor  # [E_local]
+    cur_lengths: torch.Tensor  # [E_local]
+    return_tracker: Tracker  # replicated: fed the gathered episode events
     len_tracker: Tracker
     success_tracker: Tracker
     gen: torch.Generator
@@ -82,26 +102,28 @@ def check_supported(cfg) -> None:
     """Fail on another algorithm's config and on options the port does not implement yet."""
     if cfg.algo.name != "PQL":
         raise ValueError(f"PQL runs algo.name='PQL', not {cfg.algo.name!r} (algos.get_algo picks the agent)")
-    base.check_one_device(cfg)
     if cfg.algo.noise.type not in ("mixed", "fixed"):
         raise ValueError(f"unknown algo.noise.type {cfg.algo.noise.type!r}")
 
 
 class PQL(base.ActorCriticAgent):
-    """PQL / PQL-D trainer on one device."""
+    """PQL / PQL-D trainer on one device, or on this rank's share of the env mesh."""
 
     def __init__(self, cfg, device: str | torch.device = "cuda"):
         check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
-        self.env = make_env(cfg)
-        self.num_envs = cfg.num_envs
+        self.mesh = make_mesh(cfg.num_devices, cfg.mesh_axis)
+        self.num_envs = cfg.num_envs  # global
+        self.e_local = self.mesh.local(cfg.num_envs, "num_envs")
+        self.batch_local = self.mesh.local(cfg.algo.batch_size, "batch_size")
+        self.env = VecEnv(make_task(cfg.task), self.e_local)
         self.obs_dim = self.env.obs_dim
         self.action_dim = self.env.action_dim
         self.set_ratios(cfg.algo.critic_sample_ratio, cfg.algo.critic_actor_ratio)
         # the slot-stratified window, where it fits (else iid pairs, as buffer.py:219)
         self.sample_slots = cfg.algo.sample_slots if window_fits(
-            cfg.algo.sample_slots, cfg.algo.batch_size, cfg.num_envs) else 0
+            cfg.algo.sample_slots, self.batch_local, self.e_local) else 0
         self.iters_per_call = max(int(cfg.algo.iters_per_call), 1)
         self._target_copy: nn.Module | None = None
 
@@ -135,16 +157,18 @@ class PQL(base.ActorCriticAgent):
         """Fresh state. Params and the first env states are drawn on the CPU
         from ``seed`` (so they do not depend on the device); the loop's
         generator lives on the device."""
-        cfg, dev = self.cfg, self.device
+        cfg, dev, E = self.cfg, self.device, self.e_local
         seed = cfg.seed if seed is None else seed
         g_init = torch.Generator().manual_seed(seed)
         actor = base.build_actor(cfg, self.obs_dim, self.action_dim, g_init).to(dev)
         critic = base.build_critic(cfg, self.obs_dim, self.action_dim, g_init).to(dev)
+        replicate([*actor.parameters(), *critic.parameters()])  # the same draws on every rank; rank 0's rule
         critic_target = copy.deepcopy(critic).requires_grad_(False)
-        env_state, obs = self.env.reset(self.env.task.draw_reset(g_init, self.num_envs).to(dev))
+        draw = self.mesh.shard(self.env.task.draw_reset(g_init, self.num_envs), self.num_envs)
+        env_state, obs = self.env.reset(draw.to(dev))
         slots = replay_slots(cfg.algo.memory_size, cfg.num_envs, cfg.algo.horizon_len)
         replay_dtype = torch.bfloat16 if cfg.algo.replay_dtype == "bfloat16" else torch.float32
-        zeros = lambda: torch.zeros(cfg.num_envs, dtype=torch.float32, device=dev)  # noqa: E731
+        zeros = lambda: torch.zeros(E, dtype=torch.float32, device=dev)  # noqa: E731
         return PQLState(
             actor=actor,
             actor_opt=base.build_optimizer(actor, cfg.algo.actor_lr),
@@ -154,9 +178,8 @@ class PQL(base.ActorCriticAgent):
             obs_rms=RunningMeanStd((self.obs_dim,), device=dev),
             env_state=env_state,
             obs=obs,
-            nstep=create_nstep(cfg.num_envs, self.obs_dim, self.action_dim, cfg.algo.nstep,
-                               cfg.algo.gamma, device=dev),
-            replay=ReplayBuffer(slots, cfg.num_envs, self.obs_dim, self.action_dim, replay_dtype,
+            nstep=create_nstep(E, self.obs_dim, self.action_dim, cfg.algo.nstep, cfg.algo.gamma, device=dev),
+            replay=ReplayBuffer(slots, E, self.obs_dim, self.action_dim, replay_dtype,
                                 valid_start=cfg.algo.nstep - 1, device=dev),
             cur_returns=zeros(),
             cur_lengths=zeros(),
@@ -174,7 +197,9 @@ class PQL(base.ActorCriticAgent):
     def draw_iteration(self, gen: torch.Generator, random: bool = False) -> dict[str, torch.Tensor]:
         """Every random number of one call: warm-up (``random=True``) or one
         training iteration. Drawn on ``gen``'s device, returned on the
-        agent's device.
+        agent's device. On several ranks: the env axis is this rank's slice
+        of the global draw, and the batch axis its columns of a global-batch
+        draw over its own envs (a window draw is the same on every rank).
 
         - ``action_uniform`` [H, E, A] U(-1, 1) (warm-up) or
           ``explore_normal`` [H, E, A] standard normal;
@@ -190,19 +215,21 @@ class PQL(base.ActorCriticAgent):
           draws and ``critic_win_off`` [n_critic] env offsets on [0, E), and
           ``actor_win_slot`` / ``actor_win_off``.
         """
-        cfg, E, A = self.cfg, self.num_envs, self.action_dim
+        cfg, E, A, mesh = self.cfg, self.num_envs, self.action_dim, self.mesh
         horizon = cfg.algo.warm_up if random else cfg.algo.horizon_len
-        d = base.draw_rollout(gen, self.env.task, horizon, E, A, random)
+        d = {k: mesh.shard(v, E, axis=1) for k, v in base.draw_rollout(gen, self.env.task, horizon, E, A,
+                                                                        random).items()}
         if not random:
-            B = cfg.algo.batch_size
+            B, cols = cfg.algo.batch_size, mesh.env_slice(cfg.algo.batch_size)
             for phase, count in (("critic", self.n_critic), ("actor", self.n_actor)):
                 if self.sample_slots:
-                    idx = draw_window_indices(gen, count, self.sample_slots, E)
+                    idx = draw_window_indices(gen, count, self.sample_slots, self.e_local)
                     d[f"{phase}_win_slot"], d[f"{phase}_win_off"] = idx
                 else:
-                    d[f"{phase}_slot"], d[f"{phase}_env"] = draw_sample_indices(gen, count, B, E)
+                    slot, env = draw_sample_indices(gen, count, B, self.e_local)
+                    d[f"{phase}_slot"], d[f"{phase}_env"] = slot[:, cols], env[:, cols]
                 if phase == "critic":
-                    d["target_normal"] = torch.randn(self.n_critic, B, A, generator=gen, device=gen.device)
+                    d["target_normal"] = torch.randn(self.n_critic, B, A, generator=gen, device=gen.device)[:, cols]
         return {k: v.to(self.device) for k, v in d.items()}
 
     # ----------------------------------------------------------- public API
@@ -256,11 +283,16 @@ class PQL(base.ActorCriticAgent):
         cfg = self.cfg
         noise = cfg.algo.noise
         std_hi = schedule_value(noise, state.env_steps // cfg.algo.horizon_len)
+        start = self.mesh.rank * self.e_local  # this rank's first global env index
         traj = {k: [] for k in ("obs", "action", "reward", "next_obs", "done")}
+        events = []
         obs = state.obs
         for t in range(horizon):
             if cfg.algo.obs_norm:
-                state.obs_rms.update(obs)
+                if self.mesh.size > 1:
+                    state.obs_rms.update_sharded(obs)
+                else:
+                    state.obs_rms.update(obs)
                 obs_n = state.obs_rms.normalize(obs)
             else:
                 obs_n = obs
@@ -269,7 +301,7 @@ class PQL(base.ActorCriticAgent):
             elif noise.type == "mixed":
                 action = add_mixed_normal_noise(
                     state.actor(obs_n), draws["explore_normal"][t], noise.std_min, std_hi,
-                    out_bounds=(-1.0, 1.0), num_envs_global=self.num_envs, global_start=0,
+                    out_bounds=(-1.0, 1.0), num_envs_global=self.num_envs, global_start=start,
                 )
             else:
                 action = add_normal_noise(
@@ -283,10 +315,8 @@ class PQL(base.ActorCriticAgent):
             cur_ret = state.cur_returns + reward
             cur_len = state.cur_lengths + 1.0
             done_mask = done > 0.5
-            state.return_tracker.update(cur_ret, done_mask)
-            state.len_tracker.update(cur_len, done_mask)
-            if "success" in info:
-                state.success_tracker.update(info["success"].float(), done_mask)
+            success = info["success"].float() if "success" in info else torch.zeros_like(reward)
+            events.append(torch.stack([cur_ret, cur_len, done, success]))
             state.cur_returns = torch.where(done_mask, torch.zeros_like(cur_ret), cur_ret)
             state.cur_lengths = torch.where(done_mask, torch.zeros_like(cur_len), cur_len)
 
@@ -298,7 +328,40 @@ class PQL(base.ActorCriticAgent):
             traj["done"].append(done_b[:, None])
             obs = next_obs
         state.obs = obs
+        self._update_trackers(state, torch.stack(events), "success" in info)
         return traj
+
+    def _update_trackers(self, state: PQLState, events: torch.Tensor, has_success: bool) -> None:
+        """Fold the [H, 4, E_local] episode events (return, length, done,
+        success), gathered over the ranks in global env order, into the
+        replicated trackers, step by step (pql_tpu/algos/pql.py:624-636)."""
+        if self.mesh.size > 1:
+            parts = [torch.empty_like(events) for _ in range(self.mesh.size)]
+            dist.all_gather(parts, events.contiguous())
+            events = torch.cat(parts, dim=2)
+        for ret, length, done, success in events:
+            done_mask = done > 0.5
+            state.return_tracker.update(ret, done_mask)
+            state.len_tracker.update(length, done_mask)
+            if has_success:
+                state.success_tracker.update(success, done_mask)
+
+    def _mean_over_ranks(self, tensors: list[torch.Tensor]) -> None:
+        """Average tensors over the ranks in place: one all-reduce of their
+        concatenation (the JAX package's pmean)."""
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat)
+        flat /= self.mesh.size
+        torch._foreach_copy_(tensors, [f.view_as(t) for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)])
+
+    def _grad_reduce(self):
+        return self._mean_over_ranks if self.mesh.size > 1 else None
+
+    def _phase_loss(self, losses: list[torch.Tensor]) -> torch.Tensor:
+        loss = torch.stack(losses).mean()
+        if self.mesh.size > 1:
+            self._mean_over_ranks([loss])
+        return loss
 
     def _normalize_clip(self, state: PQLState, x: torch.Tensor) -> torch.Tensor:
         return state.obs_rms.normalize_clip(x) if self.cfg.algo.obs_norm else x
@@ -310,8 +373,7 @@ class PQL(base.ActorCriticAgent):
         the learner phases)."""
         replay = state.replay
         if f"{phase}_win_slot" in draws:
-            index = replay.window_index(draws[f"{phase}_win_slot"], draws[f"{phase}_win_off"],
-                                        self.cfg.algo.batch_size)
+            index = replay.window_index(draws[f"{phase}_win_slot"], draws[f"{phase}_win_off"], self.batch_local)
         else:
             index = replay.sample_index(draws[f"{phase}_slot"], draws[f"{phase}_env"])
         if index.shape[0] != count:
@@ -352,10 +414,10 @@ class PQL(base.ActorCriticAgent):
                 loss = binary_cross_entropy(out1, target) + binary_cross_entropy(out2, target)
             else:
                 loss = torch.mean(torch.square(out1 - target)) + torch.mean(torch.square(out2 - target))
-            losses.append(base.descend(state.critic_opt, params, loss, cfg.algo.max_grad_norm))
+            losses.append(base.descend(state.critic_opt, params, loss, cfg.algo.max_grad_norm, self._grad_reduce()))
             soft_update(state.critic_target, state.critic, cfg.algo.tau)
         state.critic_update_count += self.n_critic
-        return torch.stack(losses).mean()
+        return self._phase_loss(losses)
 
     @torch.no_grad()
     def _frozen_target(self, state: PQLState) -> nn.Module:
@@ -374,9 +436,9 @@ class PQL(base.ActorCriticAgent):
             obs_n = self._normalize_clip(state, batch["obs"])
             # grads w.r.t. the actor only: the critic's parameters get none
             loss = -torch.mean(state.critic.q_min(obs_n, state.actor(obs_n)))
-            losses.append(base.descend(state.actor_opt, params, loss, cfg.algo.max_grad_norm))
+            losses.append(base.descend(state.actor_opt, params, loss, cfg.algo.max_grad_norm, self._grad_reduce()))
         state.actor_update_count += self.n_actor
-        return torch.stack(losses).mean()
+        return self._phase_loss(losses)
 
     # ------------------------------------------------------------ eval hook
 

@@ -3,8 +3,8 @@
 A copy of the PQL, off-policy baseline (DDPG, SAC, CrossQ, IDDPG),
 on-policy (PPO, IPPO, MAPPO, QTOTV1/V2, IART, IPPOTeam/IPPOTeam2),
 equivariant (EQ, EQG, EQS, EQS4, MP, EQSC, EQSdata), team-distillation
-(EQSD, EQSD2) and visual (PPOV, IPPOV) parts of ``pql_tpu.cfg.config``,
-kept here so the port imports nothing of the JAX package. The CLI grammar is the same:
+(EQSD, EQSD2), visual (PPOV, IPPOV, DDPGV) and multi-process (``dist``,
+``mesh_axis``) parts of ``pql_tpu.cfg.config``, kept here so the port imports nothing of the JAX package. The CLI grammar is the same:
 
     python -m pql_tpu_torch.train algo=pql_d task=Cartpole num_envs=4096 algo.batch_size=8192
     python -m pql_tpu_torch.train algo=ddpg task=Cartpole num_envs=16 algo.batch_size=1024
@@ -36,6 +36,21 @@ class NoiseConfig:
     std_min: float = 0.05
     tgt_pol_std: float = 0.8
     tgt_pol_noise_bound: float = 0.2
+
+
+@dataclass
+class DistConfig:
+    """A multi-process job (``parallel/distributed.py``): one process per GPU.
+    All None = one process. ``coordinator_address`` (host:port of rank 0's
+    rendezvous), ``num_processes`` and ``process_id`` may also come from
+    PQL_COORDINATOR / PQL_NUM_PROCESSES / PQL_PROCESS_ID, or from torchrun's
+    MASTER_ADDR / MASTER_PORT, WORLD_SIZE and RANK. ``auto_tpu_pod`` is the JAX
+    package's TPU-pod discovery, kept so its configs parse, and refused."""
+
+    coordinator_address: str | None = None
+    num_processes: int | None = None
+    process_id: int | None = None
+    auto_tpu_pod: bool = False
 
 
 @dataclass
@@ -140,6 +155,7 @@ def _algo_presets() -> dict[str, dict[str, Any]]:
         "pql": dict(name="PQL", eval_freq=200),
         "pql_d": dict(name="PQL", distl=True, eval_freq=200),
         "ddpg": dict(name="DDPG", eval_freq=100, update_times=8),
+        "ddpgv": dict(name="DDPGV", eval_freq=100, update_times=4),
         "sac": dict(name="SAC", act_class="TanhDiagGaussianMLPPolicy", eval_freq=100, update_times=8),
         "crossq": dict(name="CrossQ", cri_class="DoubleQBatchNorm", eval_freq=100, update_times=8),
         "ppo": dict(_ON_POLICY, name="PPO"),
@@ -171,6 +187,7 @@ class Config:
     task: str = "Cartpole"
     algo: AlgoConfig = field(default_factory=AlgoConfig)
     logging: LoggingConfig = field(default_factory=LoggingConfig)
+    dist: DistConfig = field(default_factory=DistConfig)
     num_envs: int = 4096
     eval_num_envs: int = 150
     seed: int = 42
@@ -183,8 +200,10 @@ class Config:
     info_track_step: tuple[str, ...] | None = None
     # PPO: the per-task presets of PPO_TASK_PRESETS (reference isaac_param)
     task_param: bool = False
-    # multi-device is not ported yet; PQL refuses anything but None or 1
+    # PQL's ranks (one process per GPU, ``parallel/``): the world size, or
+    # None for all of them; the env axis is split over them
     num_devices: int | None = None
+    mesh_axis: str = "env"
     # full-state checkpoint directory (resumed from if it holds one) and the
     # save period in outer iterations (0 = every 500 when a directory is set)
     checkpoint_dir: str | None = None

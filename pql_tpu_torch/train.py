@@ -22,6 +22,9 @@ and ``train_baseline``, :260-314, chosen by ``algo.name`` as at :328-331).
         # or algo=eqsd without algo.diffusion, or algo=eqsd2
     python -m pql_tpu_torch.train algo=ppov task=ReacherVision num_envs=4096 max_time=600
     python -m pql_tpu_torch.train algo=ippov task=BimanualReacherVision num_envs=4096 max_time=600
+    python -m pql_tpu_torch.train algo=ddpgv task=ReacherVision num_envs=4096 max_time=600
+    torchrun --nproc_per_node=2 -m pql_tpu_torch.train algo=pql_d task=Cartpole num_envs=8192 max_time=600
+        # or, per process r of 2: dist.coordinator_address=host:port dist.num_processes=2 dist.process_id=r
 
 A PQL run, as the JAX package's:
 
@@ -44,9 +47,18 @@ A PQL run, as the JAX package's:
 - with ``profile_dir``, a ``torch.profiler`` Chrome trace of
   ``profile_iters`` iterations from iteration 2 on.
 
+A PQL run on several processes (``parallel/``: one per GPU, the env axis
+split over them): the process group is made before anything touches the
+card, each rank takes ``cuda:<LOCAL_RANK>`` (or its id modulo the host's
+cards), and only rank 0 logs, evaluates and writes the best model (the
+adaptive ratio controller's decisions reach the other ranks by broadcast);
+the stop check is agreed over the ranks; each rank writes and resumes its
+own full-state file (``utils/checkpoint.py``). Any other agent refuses a
+world of more than one process: N ranks would train N unrelated copies.
+
 A DDPG, SAC, CrossQ, IDDPG, PPO, IPPO, MAPPO, QTOTV1, QTOTV2, IART,
-IPPOTeam, IPPOTeam2, EQ, EQS, EQG, EQSC, EQSdata, EQS4, MP, EQSD, EQSD2, PPOV
-or IPPOV run (``train_baseline``), as the JAX package's: the
+IPPOTeam, IPPOTeam2, EQ, EQS, EQG, EQSC, EQSdata, EQS4, MP, EQSD, EQSD2, PPOV,
+IPPOV or DDPGV run (``train_baseline``), as the JAX package's: the
 same start (artifact, full-state resume, else the warm-up of an agent that
 has one: the off-policy agents; the on-policy agents have none), then one
 ``train_iter`` per iteration until the stop check; every ``algo.log_freq``
@@ -77,6 +89,7 @@ from pql_tpu_torch.algos.base import set_precision
 from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import parse_cli, platform_device, to_dict
 from pql_tpu_torch.envs import make_eval_env
+from pql_tpu_torch.parallel import distributed
 from pql_tpu_torch.utils.checkpoint import (
     load_model_snapshot,
     maybe_resume_full_state,
@@ -147,7 +160,7 @@ class _ProfilerHook:
         self.done = False
 
     def tick(self, it: int) -> None:
-        if not self.cfg.profile_dir or self.done:
+        if not self.cfg.profile_dir or self.done or not distributed.is_primary():
             return
         if self.prof is None and it >= 2:
             self.prof = torch.profiler.profile(activities=self.activities)
@@ -171,11 +184,12 @@ def train_pql(cfg, logger: RunLogger, device: str | torch.device = "cuda"):
     """The PQL loop; returns the agent and its final state."""
     agent = PQL(cfg, device)
     dev = agent.device
+    primary = distributed.is_primary()
     state, resumed, evaluator, eval_gen = _start(cfg, agent, agent.init(), dev)
-    if resumed:
+    if resumed and primary:
         print(f"resumed the full state from {os.path.join(cfg.checkpoint_dir, 'state')} at env step "
               f"{state.env_steps * cfg.num_envs} (no warm-up)", flush=True)
-    else:
+    elif not resumed:
         state, _ = agent.warmup(state)
 
     ratio_ctl = None
@@ -199,16 +213,19 @@ def train_pql(cfg, logger: RunLogger, device: str | torch.device = "cuda"):
     pending_eval = None
 
     def _flush_eval():
+        """Resolve the eval in flight (rank 0), then apply rank 0's ratio
+        decision on every rank."""
         nonlocal pending_eval, best_ret
         if pending_eval is None:
+            _sync_ratios(agent, None, ratio_ctl, dev)
             return
         handle, ev_step, (snap_actor, snap_critic, snap_rms) = pending_eval
         pending_eval = None
         eval_metrics = Evaluator.resolve(handle)
         if ratio_ctl is not None:
             new_ratios = ratio_ctl.update(eval_metrics["eval/return"])
+            _sync_ratios(agent, new_ratios, ratio_ctl, dev)
             if new_ratios is not None:
-                agent.set_ratios(*new_ratios)
                 eval_metrics["train/critic_sample_ratio"] = new_ratios[0]
         logger.log(eval_metrics, step=ev_step)
         if eval_metrics["eval/return"] > best_ret and logger.run_dir:
@@ -244,16 +261,30 @@ def train_pql(cfg, logger: RunLogger, device: str | torch.device = "cuda"):
                 logger.log(host, step=steps)
             if eval_gate(it):
                 _flush_eval()  # resolve the previous eval
-                snap = (copy.deepcopy(state.actor), copy.deepcopy(state.critic), copy.deepcopy(state.obs_rms))
-                handle = evaluator.eval_policy_async(snap[0], snap[2], eval_gen)
-                pending_eval = (handle, steps, snap)
+                if primary:
+                    snap = (copy.deepcopy(state.actor), copy.deepcopy(state.critic), copy.deepcopy(state.obs_rms))
+                    handle = evaluator.eval_policy_async(snap[0], snap[2], eval_gen)
+                    pending_eval = (handle, steps, snap)
             _maybe_full_checkpoint(cfg, ckpt_gate, it, state)
-            if evaluator.check_if_should_stop(steps):
+            if distributed.any_rank(evaluator.check_if_should_stop(steps), dev):
                 _flush_eval()  # drain the eval in flight before exiting
                 break
     finally:
         profiler.close()
     return agent, state
+
+
+def _sync_ratios(agent, new_ratios, ratio_ctl, dev) -> None:
+    """Set rank 0's new update ratios (or None) on this rank; on several
+    ranks the decision is broadcast from rank 0 first."""
+    if ratio_ctl is None:
+        return
+    if distributed.world_size() > 1:
+        t = torch.tensor(new_ratios or (0, 0), dtype=torch.int64, device=dev)
+        distributed.replicate([t])
+        new_ratios = (int(t[0]), int(t[1])) if int(t[0]) else None
+    if new_ratios is not None:
+        agent.set_ratios(*new_ratios)
 
 
 def _start(cfg, agent, state, dev):
@@ -326,9 +357,17 @@ def main(argv: list[str]) -> None:
     if by_platform is not None and device is not None and torch.device(device).type != by_platform:
         raise SystemExit(f"platform={cfg.platform} contradicts --device={device}")
     device = device or by_platform or "cuda"
+    get_algo(cfg.algo.name)  # an unported algo.name fails before the run directory is made
+    world = distributed.settings(cfg)[1] or 1
+    if world > 1 and cfg.algo.name != "PQL":
+        raise SystemExit(f"algo.name={cfg.algo.name!r} runs in one process: only PQL splits its envs over "
+                         f"ranks, and {world} ranks would train {world} unrelated copies")
+    owned = not torch.distributed.is_initialized()  # a group made here ends here
+    joined = distributed.initialize(cfg, device)  # before anything else touches the card
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device found (pass --device=cpu to run on the CPU)")
-    get_algo(cfg.algo.name)  # an unported algo.name fails before the run directory is made
+    if joined and torch.device(device).type == "cuda":
+        device = f"cuda:{torch.cuda.current_device()}"  # this rank's card
     set_precision(cfg)
     train = train_pql if cfg.algo.name == "PQL" else train_baseline
     logger = RunLogger(cfg, to_dict(cfg))
@@ -336,6 +375,8 @@ def main(argv: list[str]) -> None:
         train(cfg, logger, device)
     finally:
         logger.close()
+        if joined and owned:
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -7,7 +7,7 @@ package writes orbax directories; the formats differ):
   ``<dir>/state.pt``) of a ``PQLState``, of a baseline's ``OffPolicyState``
   / ``SACState`` / ``IDDPGState`` or of an on-policy ``PPOState`` (PPO,
   MAPPO, EQG) / ``IPPOState`` (IPPO, QTOT, the team agents, EQ, EQS, EQS4,
-  EQSdata, MP, EQSD, EQSD2) / ``EQSCState``: the actor, critic
+  EQSdata, MP, EQSD, EQSD2) / ``EQSCState``, or of a ``DDPGVState``: the actor, critic
   and target weights (the actor target where the state has one; a CrossQ
   critic's BatchNorm statistics are its buffers; a two-agent state's
   ``nets``, IDDPG's targets among them) and the optimizers' ``state_dict``s
@@ -15,15 +15,24 @@ package writes orbax directories; the formats differ):
   the value normalizers, the env state, obs and (on-policy) the dones, the
   n-step FIFO and the replay ring with its pointer and write count
   (off-policy), the episode accumulators and trackers (PQL's three, or an
-  ``EpisodeStats``), the generator's state (a CUDA generator's on the card)
+  ``EpisodeStats``; DDPGV's two), the generator's state (a CUDA generator's on the card)
   and the counters. ``maybe_resume_full_state`` restores it into a freshly
-  built state, and training continues bitwise as if it had not stopped;
+  built state, and training continues bitwise as if it had not stopped.
+  DDPGV's host ring is not part of its state, in either package: its run
+  resumes with an empty ring and a fresh sampler;
 - the **weights-only snapshot** (``save_model_snapshot`` /
   ``load_model_snapshot``, ``<dir>/snapshot.pt``): ``{actor, critic,
   obs_rms}``, the reference's best-model payload, of the modules the
   agent's ``snapshot_parts`` names. ``restore_into_state`` loads it, the
   targets from ``actor`` and ``critic``. ``utils/convert.py``'s
   ``snapshot_from_jax`` makes one from a JAX snapshot.
+
+A multi-process PQL run (``parallel/``) writes one full-state file per rank,
+``<dir>/state.rank<r>-of-<W>.pt``, each holding that rank's env slice, ring
+and n-step FIFO beside the replicated weights, optimizers, normalizer,
+trackers and generator; every rank waits for the others' saves. It resumes
+on the same world size only: each rank reads its own file, and the ranks
+check that they found their files and restored the same counters.
 
 A file is written beside its final name and renamed into place, so a run
 stopped during a save keeps the previous checkpoint. Files hold tensors,
@@ -35,6 +44,8 @@ from __future__ import annotations
 import os
 
 import torch
+
+from pql_tpu_torch.parallel.distributed import host_barrier, rank, same_on_all_ranks, world_size
 
 STATE_FILE = "state.pt"
 SNAPSHOT_FILE = "snapshot.pt"
@@ -104,7 +115,7 @@ def state_dict(state) -> dict:
     else:
         sd.update(cur_returns=state.cur_returns, cur_lengths=state.cur_lengths,
                   trackers={n: dict(ring=getattr(state, n).ring, ptr=getattr(state, n).ptr,
-                                    count=getattr(state, n).count) for n in _TRACKERS})
+                                    count=getattr(state, n).count) for n in _present(state, _TRACKERS)})
     if getattr(state, "log_alpha", None) is not None:
         sd["log_alpha"] = state.log_alpha.detach()
     return sd
@@ -159,14 +170,25 @@ def load_state_dict(state, sd: dict):
     return state
 
 
+def state_file() -> str:
+    """This process's full-state file name: ``state.pt``, or one per rank."""
+    w = world_size()
+    return STATE_FILE if w == 1 else f"state.rank{rank()}-of-{w}.pt"
+
+
 def save_checkpoint(path: str, state) -> None:
-    """The full state into ``path/state.pt``."""
-    _save(state_dict(state), path, STATE_FILE)
+    """The full state into ``path/state.pt`` (``state_file()`` on several ranks)."""
+    _save(state_dict(state), path, state_file())
+    host_barrier()
 
 
 def load_checkpoint(path: str, state):
     """Restore ``path`` (a directory from ``save_checkpoint``) into ``state``."""
-    return load_state_dict(state, _load(path, STATE_FILE))
+    state = load_state_dict(state, _load(path, state_file()))
+    counters = [getattr(state, k) for k in _COUNTERS if hasattr(state, k)]
+    if not same_on_all_ranks(counters, state.obs.device):
+        raise ValueError(f"the ranks' checkpoints in {path} hold different counters (a save cut between ranks)")
+    return state
 
 
 def maybe_resume_full_state(cfg, state):
@@ -176,7 +198,10 @@ def maybe_resume_full_state(cfg, state):
     if not cfg.checkpoint_dir:
         return state, False
     path = os.path.join(cfg.checkpoint_dir, "state")
-    if not os.path.exists(os.path.join(path, STATE_FILE)):
+    found = os.path.exists(os.path.join(path, state_file()))
+    if not same_on_all_ranks([int(found)], state.obs.device):
+        raise ValueError(f"{path} holds the full-state files of some ranks only (this run: {world_size()} ranks)")
+    if not found:
         return state, False
     return load_checkpoint(path, state), True
 

@@ -1,6 +1,7 @@
 """Carry weights and PQL, DDPG, SAC, CrossQ, IDDPG, PPO, IPPO, MAPPO, QTOT,
-team-agent, equivariant-agent, EQSD / EQSD2 and PPOV / IPPOV states from the
-JAX package into the port.
+team-agent, equivariant-agent, EQSD / EQSD2, PPOV / IPPOV and DDPGV states
+from the JAX package into the port (``ddpgv_state_from_jax`` /
+``load_ddpgv_state``: the PPOV actor's tree and DDPG's critic).
 
 Inputs are plain nested dicts of numpy arrays (no JAX object crosses), so
 this module imports nothing of JAX:
@@ -322,6 +323,27 @@ def pql_state_from_jax(tree: dict, layout) -> dict:
     )
 
 
+def ddpgv_state_from_jax(tree: dict) -> dict:
+    """A whole JAX DDPGV state (as numpy) → port tensors: ``actor_params``
+    (the PPOV actor's tree), ``critic_params`` and ``critic_target`` (DDPG's
+    Double-Q), their optimizers, ``obs_rms``, ``env_state``, ``obs``,
+    ``cur_returns``, ``cur_lengths``, ``return_tracker``, ``len_tracker`` and
+    ``env_steps``. The host ring is not part of the state."""
+    return dict(
+        actor=params_from_jax(tree["actor_params"]),
+        critic=params_from_jax(tree["critic_params"]),
+        critic_target=params_from_jax(tree["critic_target"]),
+        actor_opt=_opt_from_jax(tree["actor_opt"]),
+        critic_opt=_opt_from_jax(tree["critic_opt"]),
+        **_env_from_jax(tree),
+        cur_returns=_tensor(tree["cur_returns"]),
+        cur_lengths=_tensor(tree["cur_lengths"]),
+        trackers={n: dict(ring=_tensor(tree[n]["ring"]), ptr=int(tree[n]["ptr"]), count=int(tree[n]["count"]))
+                  for n in ("return_tracker", "len_tracker")},
+        counters={"env_steps": int(tree["env_steps"])},
+    )
+
+
 def _tracker_from_jax(t: dict) -> dict:
     return dict(ring=_tensor(t["ring"]), ptr=torch.tensor(int(t["ptr"])), count=torch.tensor(int(t["count"])))
 
@@ -458,6 +480,11 @@ def load_pql_state(state, conv: dict) -> None:
     _load_module_opt(state.critic, state.critic_opt, conv["critic"], conv["critic_opt"])
     state.critic_target.load_state_dict(conv["critic_target"])
     _load_env_parts(state, conv)
+    _load_episodes(state, conv)
+
+
+def _load_episodes(state, conv: dict) -> None:
+    """PQL's or DDPGV's episode accumulators, trackers and counters."""
     dev = state.obs.device
     state.cur_returns = conv["cur_returns"].to(dev)
     state.cur_lengths = conv["cur_lengths"].to(dev)
@@ -468,6 +495,16 @@ def load_pql_state(state, conv: dict) -> None:
         tracker.count.fill_(t["count"])
     for k, v in conv["counters"].items():
         setattr(state, k, v)
+
+
+@torch.no_grad()
+def load_ddpgv_state(state, conv: dict) -> None:
+    """Write a ``ddpgv_state_from_jax`` conversion into a port DDPGVState in place."""
+    _load_module_opt(state.actor, state.actor_opt, conv["actor"], conv["actor_opt"])
+    _load_module_opt(state.critic, state.critic_opt, conv["critic"], conv["critic_opt"])
+    state.critic_target.load_state_dict(conv["critic_target"])
+    _load_env(state, conv)
+    _load_episodes(state, conv)
 
 
 @torch.no_grad()

@@ -5,8 +5,9 @@ The default sink is a local JSONL file per run, ``out_dir/run_name/
 metrics.jsonl`` (one dict per log call, with ``step`` and ``time``), beside
 ``config.json``, plus a console line; with ``cfg.logging.mode='wandb'`` and
 the package importable, wandb takes the same calls. ``off`` writes nothing.
-The JAX logger's multi-host gating is not ported (the port refuses
-``num_devices`` > 1).
+In a multi-process run only rank 0 owns sinks: ``run_dir`` stays None on
+the others, which also keeps them from writing a best model (the JAX
+logger's multi-host gating).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import json
 import os
 import time
 from typing import Any
+
+from pql_tpu_torch.parallel.distributed import is_primary
 
 
 class RunLogger:
@@ -25,6 +28,8 @@ class RunLogger:
         self._wandb = None
         self._file = None
         self.run_dir = None
+        if not is_primary():
+            self.mode = "off"
         if self.mode == "off":
             return
         run_name = cfg.logging.run_name or f"{cfg.task}_{cfg.algo.name}_{int(self.start_time)}"

@@ -309,29 +309,28 @@ def test_episode_stats_match_jax():
 
 @pytest.mark.parametrize("name", ["PPOV", "IPPOV", "DDPGV"])
 def test_get_algo_refuses_unported(name):
-    """DDPGV (the vision tier's off-policy half) is refused by name; PPOV and
-    IPPOV, refused until the vision tier's on-policy half was ported, now
-    resolve, as does every other name."""
-    if name != "DDPGV":
-        assert get_algo(name).name == name
-        return
-    with pytest.raises(NotImplementedError, match=r"'DDPGV' is not ported yet: it comes with the host replay ring"):
-        get_algo(name)
-    with pytest.raises(NotImplementedError, match=r"not ported yet; ported: \['CrossQ', 'DDPG', 'EQ', 'EQG', 'EQS', "
-                                                  r"'EQS4', 'EQSC', 'EQSD', 'EQSD2', 'EQSdata', 'IART', 'IDDPG', "
-                                                  r"'IPPO', 'IPPOTeam', 'IPPOTeam2', 'IPPOV', 'MAPPO', 'MP', 'PPO', "
-                                                  r"'PPOV', 'PQL', 'QTOTV1', 'QTOTV2', 'SAC'\]"):
+    """The vision tier's names resolve, DDPGV (its off-policy half) the last
+    of the JAX package's agents; an unknown name is refused with the list of
+    ported ones, DDPGV among them."""
+    assert get_algo(name).name == name
+    with pytest.raises(NotImplementedError, match=r"not ported yet; ported: \['CrossQ', 'DDPG', 'DDPGV', 'EQ', 'EQG', "
+                                                  r"'EQS', 'EQS4', 'EQSC', 'EQSD', 'EQSD2', 'EQSdata', 'IART', "
+                                                  r"'IDDPG', 'IPPO', 'IPPOTeam', 'IPPOTeam2', 'IPPOV', 'MAPPO', 'MP', "
+                                                  r"'PPO', 'PPOV', 'PQL', 'QTOTV1', 'QTOTV2', 'SAC'\]"):
         get_algo("NoSuchAgent")
 
 
 def test_config_refuses_unported(tmp_path):
-    with pytest.raises(ValueError, match="Unknown algo 'ddpgv'"):
-        parse_cli(["algo=ddpgv"])
-    with pytest.raises(NotImplementedError, match="'DDPGV' is not ported yet"):
-        train.main(["algo=ddpg", "algo.name=DDPGV", f"logging.out_dir={tmp_path}", "--device=cpu"])
+    """``algo=ddpgv`` and the multi-device keys parse now; an unknown agent
+    name fails before the run directory is made, an unknown key at parse time."""
+    cfg = parse_cli(["algo=ddpgv", "mesh_axis=env", "dist.num_processes=1"])
+    assert (cfg.algo.name, cfg.algo.update_times, cfg.algo.eval_freq, cfg.mesh_axis, cfg.dist.num_processes) == (
+        "DDPGV", 4, 100, "env", 1)
+    with pytest.raises(NotImplementedError, match="'NoSuchAgent' is not ported yet"):
+        train.main(["algo=ddpg", "algo.name=NoSuchAgent", f"logging.out_dir={tmp_path}", "--device=cpu"])
     assert not os.listdir(tmp_path)  # refused before the run directory is made
-    with pytest.raises(AttributeError, match="No config field 'mesh_axis'"):
-        parse_cli(["algo=ddpg", "mesh_axis=env"])
+    with pytest.raises(AttributeError, match="No config field 'mesh_shape'"):
+        parse_cli(["algo=ddpg", "mesh_shape=env"])
     cfg = parse_cli(["algo=sac", "info_track_keys=[success]", "algo.alpha=0.2"])
     assert (cfg.algo.name, cfg.algo.act_class, cfg.info_track_keys, cfg.algo.alpha) == (
         "SAC", "TanhDiagGaussianMLPPolicy", ("success",), 0.2)

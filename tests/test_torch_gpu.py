@@ -18,6 +18,7 @@ from hypothesis import strategies as st
 from chip_smoke import (
     BASELINE_ALGOS,
     C51_CASES,
+    DDPGV_REF,
     EQ_CLASSES,
     EQSD_REF,
     DDPG_THRESHOLD,
@@ -29,6 +30,9 @@ from chip_smoke import (
     RIGID_TASKS,
     c51_case,
     baseline_reference,
+    card_vs_cpu,
+    dist_one_rank,
+    host_ring_check,
     c51_logit_scale,
     envs_beyond_tol,
     eq_layer_check,
@@ -683,3 +687,49 @@ def test_vision_agents_iterate_and_resume_bitwise_on_card(cuda, tmp_path, algo, 
     for _ in range(2):
         s2, _ = agent2.train_iter(s2)
     assert state_diffs(s, s2) == []
+
+
+@pytest.mark.gpu
+def test_host_ring_pinned_gather_on_card(cuda):
+    """chip_smoke's host_ring_check: the ring built on this machine, its
+    gather bitwise numpy's at default_rng(0)'s indices, and three batches
+    through the pinned staging sets and copies bitwise the CPU's."""
+    out = host_ring_check(cuda)
+    assert out["pinned_h2d_bitwise_cpu"] and out["library"].startswith("build/native/libhost_ring-")
+
+
+@pytest.mark.gpu
+def test_ddpgv_on_card_matches_cpu(cuda):
+    """The warm-up and two DDPGV iterations at DDPGV_REF's size, card vs CPU
+    (card_vs_cpu raises past 1% of a step's norm or 1e-3 of a loss)."""
+    runs = card_vs_cpu(cuda, DDPGV_REF)
+    assert len(runs) == 1 and all(r["updates"] == 2 for r in runs.values())
+
+
+@pytest.mark.gpu
+def test_ddpgv_iterates_and_restores_on_card(cuda, tmp_path):
+    """Three iterations at a small size on the card: finite losses, 4
+    updates per iteration, the ring one collect fuller each; a checkpoint
+    restores bitwise into a fresh agent, whose ring starts empty."""
+    cfg = make_config("ddpgv", task="ReacherVision", num_envs=64, algo__batch_size=256, algo__memory_size=4096)
+    agent = get_algo("DDPGV")(cfg, device=cuda)
+    s, _ = agent.warmup(agent.init(seed=0))
+    for _ in range(3):
+        s, m = agent.train_iter(s)
+    assert all(bool(torch.isfinite(v)) for v in m.values()), m
+    assert (s.update_count, s.env_steps, agent.replay.filled) == (12, 4 * 64, 4)
+    checkpoint.save_checkpoint(str(tmp_path / "state"), s)
+    agent2 = get_algo("DDPGV")(cfg, device=cuda)
+    s2 = checkpoint.load_checkpoint(str(tmp_path / "state"), agent2.init(seed=7))
+    assert state_diffs(s, s2) == [] and agent2.replay.filled == 0
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_group_is_the_one_gpu_path(cuda):
+    """chip_smoke's dist_one_rank at a small size: PQL-D through a one-rank
+    NCCL group bitwise equal to the run without a group, 8 kernel launches
+    per iteration."""
+    argv = ("algo=pql_d", "task=Cartpole", "num_envs=256", "algo.batch_size=1024", "algo.memory_size=65536",
+            "algo.warm_up=4")
+    out = dist_one_rank(cuda, "", argv, 2)
+    assert out["launches"]["c51_td_target"] == 16 and out["bitwise_equal_without_group"]

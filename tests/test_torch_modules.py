@@ -8,6 +8,8 @@ same elementwise arithmetic, looser (stated at the test) where matrix
 products or reductions run in another order.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -99,6 +101,9 @@ def _reset_draw(env: JVecEnv, k_reset) -> np.ndarray:
         ["algo=eqsd2", "task=BimanualReacherSym", "algo.kl_max=0.5", "algo.kl_decay_iters=200"],
         ["algo=ppov", "task=ReacherVision", "num_envs=4096", "algo.encoder_weights=trunk.npz"],
         ["algo=ippov", "task=BimanualReacherVision", "algo.batch_size=16384"],
+        ["algo=ddpgv", "task=ReacherVision", "num_envs=4096", "algo.memory_size=1000000"],
+        ["algo=pql_d", "num_devices=2", "mesh_axis=env", "dist.coordinator_address=localhost:29500",
+         "dist.num_processes=2", "dist.process_id=1"],
     ],
 )
 def test_cfg_parse_cli_matches(argv):
@@ -112,10 +117,18 @@ def test_cfg_parse_cli_matches(argv):
 
 
 def test_cfg_rejects_knobs_the_port_lacks():
+    """The port's config now has every field of the JAX one (the multi-device
+    ``dist`` group and ``mesh_axis`` came last), so what it refuses is a key
+    neither package has and a value it cannot run (``platform=tpu``)."""
+    for j_cls, t_cls in ((jcfg.Config, tcfg.Config), (jcfg.AlgoConfig, tcfg.AlgoConfig),
+                         (jcfg.DistConfig, tcfg.DistConfig)):
+        assert {f.name for f in dataclasses.fields(t_cls)} == {f.name for f in dataclasses.fields(j_cls)}
     with pytest.raises(AttributeError):
-        tcfg.parse_cli(["algo=pql", "mesh_axis=env"])  # a multi-device knob
+        tcfg.parse_cli(["algo=pql", "mesh_shape=env"])
+    with pytest.raises(AttributeError):
+        tcfg.parse_cli(["algo=pql", "dist.coordinator=localhost:1"])
     with pytest.raises(ValueError):
-        tcfg.parse_cli(["algo=ddpgv"])  # the vision tier's off-policy half is not ported yet
+        tcfg.parse_cli(["algo=pql", "platform=tpu"])
 
 
 # ----------------------------------------------------------------- envs

@@ -11,8 +11,9 @@
   the horizon: params, Adam moments, losses, normalizers, obs, dones,
   statistics, counters;
 - the eval hooks from the state's env state (``needs_env_state``);
-- the refusal of a task without proprio / point cloud; the ``ppov`` and
-  ``ippov`` presets equal to the JAX ones; DDPGV still refused.
+- the refusal of a task without proprio / point cloud (and DDPGV's of a
+  task without a camera); the ``ppov``, ``ippov`` and ``ddpgv`` presets
+  equal to the JAX ones.
 
 Tolerance rtol 1e-4 / atol 1e-5 with the Adam allowance of
 tests/test_torch_pql.py::_assert_close; metrics rtol/atol 1e-4 as
@@ -138,12 +139,14 @@ def test_refusals_and_presets():
     for algo, task in (("ppov", "Cartpole"), ("ippov", "BimanualReacher")):
         with pytest.raises(ValueError, match="needs a vision task exposing proprio/pointcloud"):
             get_algo(algo.upper())(make_config(algo, task=task, num_envs=4, algo__batch_size=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="host replay ring"):
-        get_algo("DDPGV")
-    for algo in ("ppov", "ippov"):
+    with pytest.raises(ValueError, match="DDPGV needs a camera task"):
+        get_algo("DDPGV")(make_config("ddpgv", task="BimanualReacherVision", num_envs=4, algo__batch_size=8,
+                                      algo__memory_size=64), device="cpu")
+    for algo in ("ppov", "ippov", "ddpgv"):
         want = dataclasses.asdict(j_make_config(algo).algo)
         got = dataclasses.asdict(make_config(algo).algo)
         assert {k: (v, want.get(k, "missing")) for k, v in got.items() if want.get(k, "missing") != v} == {}
-        assert got["name"] == algo.upper() and got["encoder_weights"] is None and got["horizon_len"] == 16
+        assert got["name"] == algo.upper() and got["encoder_weights"] is None
+        assert got["horizon_len"] == (1 if algo == "ddpgv" else 16)
     agent = get_algo("PPOV")(make_config("ppov", **SIZES["ppov"]), device="cpu")
     assert agent.has_camera and agent.init().actor.encoder is not None

@@ -226,7 +226,9 @@ def test_warmup_then_iterations_run_with_own_generator():
 
 @pytest.mark.parametrize("override", [dict(num_devices=2)])
 def test_unported_options_fail_loudly(override):
-    with pytest.raises(NotImplementedError):
+    """Two devices asked of a process without a two-rank process group: the
+    port runs one process per GPU (tests/test_torch_parallel.py runs two)."""
+    with pytest.raises(ValueError, match=r"num_devices=2 but the process group has 1 rank"):
         PQL(make_config("pql_d", **SMALL, **override), device="cpu")
 
 

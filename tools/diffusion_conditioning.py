@@ -7,14 +7,20 @@
 Two measurements, each printed as one JSON line:
 
 1. ``reference_runs``: for each of chip_smoke's ``EQSD_REF`` runs
-   (``--refs vision``: ``VISION_REF``, the PPOV and IPPOV runs; two
-   iterations at its small size, the draws from a generator seeded 1, as
-   ``card_vs_cpu`` makes them) at each ``--seeds`` value, the largest change
+   (``--refs vision``: ``VISION_REF`` and ``DDPGV_REF``, the PPOV, IPPOV and
+   DDPGV runs; the warm-up of an agent that has one and two iterations at
+   its small size, the draws from a generator seeded 1, as ``card_vs_cpu``
+   makes them) at each ``--seeds`` value, the largest change
    of any network's two-iteration step, relative to the step's norm, when
    every initial weight is scaled by (1 + ε·z), z standard normal, for ε in
-   ``PERTURBATIONS``. A run whose steps move by more than the card-vs-CPU
-   check's 1% under such a change sits on a branch boundary (a PPO clip) and
-   cannot tell a fault of the card from rounding.
+   ``PERTURBATIONS``; for an agent that stores quantized frames (DDPGV),
+   also when every rendered frame is scaled by (1 + ε·z) for ε in
+   ``FRAME_PERTURBATIONS`` (the render's card-vs-CPU scale) before round(x·255), which
+   moves the pixels at a .5 boundary by one level, as the card's render
+   does (a few per collect on the H100). A run whose steps move by
+   more than the card-vs-CPU check's 1% under such a change sits on a branch
+   boundary (a PPO clip, an Adam first step on a rounding-level gradient)
+   and cannot tell a fault of the card from rounding.
 2. ``sampler`` (``--refs eqsd``): both diffusion policies at full width on
    BimanualReacher's joint reps, 4096 rows, fp32 against float64 on the
    same draws, relative to 1 + |a|: at their init and with every weight
@@ -33,7 +39,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import EQSD_REF, VISION_REF  # noqa: E402
+from chip_smoke import DDPGV_REF, EQSD_REF, VISION_REF  # noqa: E402
 from pql_tpu_torch.algos import get_algo  # noqa: E402
 from pql_tpu_torch.algos.ma_base import MultiAgentCtx  # noqa: E402
 from pql_tpu_torch.cfg import make_config  # noqa: E402
@@ -44,9 +50,11 @@ from pql_tpu_torch.models.emlp import concat_reps  # noqa: E402
 from pql_tpu_torch.ops.ddpm import draw_sample  # noqa: E402
 
 PERTURBATIONS = (1e-7, -1e-7, 3e-7)
+# the render's card-vs-CPU difference is 1.5e-6 of 1 + |f| (PERF.md §6)
+FRAME_PERTURBATIONS = (1e-6, -1e-6, 3e-6)
 
 
-REFS = {"eqsd": EQSD_REF, "vision": VISION_REF}
+REFS = {"eqsd": EQSD_REF, "vision": VISION_REF + DDPGV_REF}
 
 
 def _nets(agent, state) -> dict[str, torch.nn.Module]:
@@ -59,9 +67,10 @@ def _flat(nets) -> dict[str, torch.Tensor]:
     return {k: torch.cat([p.detach().flatten() for p in m.parameters()]) for k, m in nets.items()}
 
 
-def _two_iterations(cfg, eps: float) -> tuple[dict, dict]:
-    """(initial, final) flat weights of each network after two iterations
-    from initial weights scaled by (1 + eps·z)."""
+def _two_iterations(cfg, eps: float, frame_eps: float = 0.0) -> tuple[dict, dict]:
+    """(initial, final) flat weights of each network after the warm-up (of
+    an agent that has one) and two iterations from initial weights scaled by
+    (1 + eps·z), and every rendered frame by (1 + frame_eps·z)."""
     agent = get_algo(cfg.algo.name)(cfg, device="cpu")
     state = agent.init()
     z = torch.Generator().manual_seed(5)
@@ -69,8 +78,13 @@ def _two_iterations(cfg, eps: float) -> tuple[dict, dict]:
         for m in _nets(agent, state).values():
             for p in m.parameters():
                 p.mul_(1 + eps * torch.randn(p.shape, generator=z))
+    if frame_eps:
+        task, render = agent.env.task, agent.env.task.render
+        task.render = lambda st: (lambda x: x * (1 + frame_eps * torch.randn(x.shape, generator=z)))(render(st))
     theta0 = _flat(_nets(agent, state))
     gen = torch.Generator().manual_seed(1)
+    if hasattr(agent, "warmup"):
+        state, _ = agent.warmup(state, agent.draw_iteration(gen, random=True))
     for _ in range(2):
         state, _ = agent.train_iter(state, agent.draw_iteration(gen))
     return theta0, _flat(_nets(agent, state))
@@ -83,11 +97,15 @@ def reference_runs(seeds, refs=EQSD_REF) -> dict:
             cfg = make_config(algo, **dict(kwargs, seed=kwargs.get("seed", 42) if seed is None else seed))
             theta0, base = _two_iterations(cfg, 0.0)
             worst = {}
-            for eps in PERTURBATIONS:
-                _, moved = _two_iterations(cfg, eps)
+            kinds = [(eps, 0.0) for eps in PERTURBATIONS]
+            if algo == "ddpgv":  # the stored frames are quantized: perturb the render too
+                kinds += [(0.0, eps) for eps in FRAME_PERTURBATIONS]
+            for eps, frame_eps in kinds:
+                _, moved = _two_iterations(cfg, eps, frame_eps)
                 for k in base:
                     rel = float((moved[k] - base[k]).norm() / (base[k] - theta0[k]).norm())
-                    worst[k] = max(worst.get(k, 0.0), rel)
+                    key = f"{k} (frames)" if frame_eps else k
+                    worst[key] = max(worst.get(key, 0.0), rel)
             label = f"seed {cfg.seed} {algo}" + (" diffusion" if kwargs.get("algo__diffusion") else "") + (
                 " plain" if kwargs.get("algo__act_class") == "DiagGaussianMLPPolicy" else "")
             out[label] = worst
@@ -129,7 +147,8 @@ def main() -> None:
     ap.add_argument("--refs", choices=sorted(REFS), default="eqsd")
     args = ap.parse_args()
     seeds = args.seeds or ([42, 0] if args.refs == "eqsd" else [None])
-    print(json.dumps({"reference_runs": reference_runs(seeds, REFS[args.refs]), "perturbations": PERTURBATIONS}))
+    print(json.dumps({"reference_runs": reference_runs(seeds, REFS[args.refs]), "perturbations": PERTURBATIONS,
+                      "frame_perturbations": FRAME_PERTURBATIONS}))
     if args.refs == "eqsd":
         print(json.dumps({"sampler": sampler()}))
 
