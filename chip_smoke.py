@@ -65,7 +65,7 @@ line each:
 15. baseline_reference — warm-up and two iterations of DDPG, SAC and CrossQ
    at a small size on the card and on the CPU, same state and draws;
 16. baseline_main_path — DDPG Cartpole @16 (the JAX bench's
-   cartpole_ddpg_16) for 106 iterations, and DDPG, SAC and CrossQ on Ant
+   cartpole_ddpg_16) for 54 iterations, and DDPG, SAC and CrossQ on Ant
    @4096 for 11 iterations each after the warm-up, at full width: ms/iter,
    env-steps/s, 8 updates per iteration, device ms/iter (sim graph and
    learner on Ant);
@@ -74,7 +74,7 @@ line each:
    bitwise equal to an uninterrupted one;
 18. ddpg_learning_gate — the JAX package's DDPG gate (tests/test_learning.py:
    62-84, ``DDPG_GATE``): seed 0's best eval return at iterations 200, 225
-   and 250 must exceed 400; seed 1 is printed;
+   and 250 must exceed 400;
 19. ppo_reference — two iterations of PPO (value_norm), IPPO (two pairs, and
    one under same_policy) and MAPPO at a small size on the card and on the
    CPU, same state and draws: parameter steps within 1%, losses 1e-3;
@@ -168,7 +168,7 @@ line each:
    trunk ops' share of the profiled device time (``TRUNK_OPS``);
 37. vision_entry_path — ``train.main algo=ppov task=ReacherVision
    num_envs=4096`` through ppo_entry_path: an eval (rendered from the eval
-   env's state) and a checkpoint at iteration 2, resumed to 3 bitwise equal
+   env's state) and a checkpoint at iteration 1, resumed to 2 bitwise equal
    to an uninterrupted run, the checkpoint's bytes and save and load seconds.
 
 38. ddpgv_reference — the port's host ring built on this machine, its
@@ -189,13 +189,38 @@ line each:
 41. dist_one_rank — PQL-D Cartpole @4096 through ``parallel.initialize``
    with a one-rank NCCL group: bitwise equal to the run without a group, 8
    ``c51_td_target`` launches per iteration, the all-reduce of the critic's
-   gradient timed.
+   gradient timed;
+42. legacy_contact_check — the legacy viscous groups (``ground_contacts``,
+   ``sphere_box_contacts``, ``box_ground_contacts``) in both forms and the
+   per-pair anchored loops (``*_anchored_s``) on seeded states
+   (``legacy_states``) of the Ant @4096 and the AllegroHand @8192 that reach
+   every branch (separated, penetrating, capped, pressed apart, Coulomb and
+   viscous friction, fresh touch, sticking, sliding, a sphere inside the
+   box; counted on the card): the matrix form against the scalar form, the
+   loops against the vectorized groups, the card against the CPU; each
+   form's kernel nodes and graph ms; one Ant control step with
+   ``ground_contacts_s`` as its contact function, graphed, bitwise its eager
+   step and within STEP_TOL of the CPU's, its nodes and replay ms;
+43. contact_lab — every scene of ``pql_tpu_torch.contact_lab`` on the card
+   (one env each, each scene's control step a captured graph): verdict,
+   numbers and printed lines, wall seconds, control steps and graph nodes
+   per control step; every scene outside ``KNOWN_REGRESSIONS`` must pass;
+44. visualize_path — ``train.main`` (PQL-D Cartpole @4096, ``VIS_ITERS``
+   iterations with evals) writes a best model; ``pql_tpu_torch.visualize``
+   rolls it for ``VIS_EPISODES`` episode batches; its printed lines and
+   returns equal those of an ``Evaluator`` built from the same snapshot
+   with the same generator; ms per episode batch;
+45. ratio_sweep — ``pql_tpu_torch.ratio_sweep.main`` on AllegroHand @8192
+   (``algo=pql``) at ``SWEEP_POINTS``, ``SWEEP_SECONDS`` each: per point the
+   JAX script's JSON keys, exactly cs critic and cs/ca actor updates per
+   iteration over the window, env-steps/s and the three rates, the eval
+   return, the table file, 0 ``c51_td_target`` launches.
 
 ``--entry`` runs ``ENTRY_RUNS`` instead: PPO Ant, IPPO and PPOV
 ReacherVision through ppo_entry_path, IDDPG at its full preset (ring 5e6)
 through baseline_entry_path.
 
-Each main path, and each of phases 11, 12, 14, 16-18 and 20-41, resets the
+Each main path, and each of phases 11, 12, 14, 16-18, 20-41, 44 and 45, resets the
 kernels' launch counts just before it drives the port and reads them just
 after (0 ``c51_td_target`` launches on every on-policy path). Then the ``{"kernels": [...]}`` line, the nvidia-smi
 line, and last
@@ -212,8 +237,10 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 MAIN_WARM_ITERS = 5  # untimed iterations of each route first
-MAIN_BLOCKS = 8  # timed blocks, alternating kernel and plain routes
+MAIN_BLOCKS = 4  # timed blocks, alternating kernel and plain routes
 MAIN_BLOCK_ITERS = 10  # iterations per timed block
 PROFILED_ITERS = 5  # iterations under torch.profiler after the timed ones
 TOL = 1e-5  # kernel vs plain version, fp32 (ulp-level: support by i*dz+v_min vs linspace, FMA)
@@ -223,8 +250,8 @@ COLD_SETS = 32  # input sets rotated for cold times: 32 x 5.08 MB = 163 MB, over
 RIGID_TASKS = ("Ant", "Humanoid", "Anymal")
 PHYS_ENVS = 4096
 PHYS_ROLL = 50  # control steps before the compared one
-PHYS_REPS = 20  # graph replays per timing
-PHYS_TIMINGS = 5  # timings per task
+PHYS_REPS = 5  # graph replays per timing
+PHYS_TIMINGS = 3  # timings per task
 # Card against CPU, one control step (eager, fp32): the tolerances of the
 # CPU parity tests against the JAX package (tests/test_torch_physics.py,
 # tests/test_torch_rigid.py): rtol 1e-4 with atol 1e-5 on positions,
@@ -264,12 +291,12 @@ FRANKA_MAX_FLIPS = 8
 HAND_WARM_ITERS = 2  # untimed iterations after the warm-up
 HAND_BLOCKS = 3  # timed blocks of HAND_BLOCK_ITERS iterations
 HAND_BLOCK_ITERS = 3
-HAND_PROFILED_ITERS = 2
+HAND_PROFILED_ITERS = 1
 ENTRY_ARGV = ("algo=pql_d", "task=Cartpole", "num_envs=4096")
 ENTRY_CALLS = 8  # train_block calls of iters_per_call = 4 iterations
 ENTRY_EVAL_FREQ = 8  # evals at iterations 8, 16, 24, 32
 ENTRY_CKPT_FREQ = 12  # full checkpoints at iterations 12, 24
-EVAL_TIMINGS = 3  # timed eval calls after the entry run
+EVAL_TIMINGS = 1  # timed eval calls after the entry run
 RESUME_K, RESUME_M = 3, 3  # iterations before the checkpoint and after it
 SLOT_ITERS = 3  # iterations with algo.sample_slots=8
 # the JAX package's gate (tests/test_learning.py:37-59): eval return > 250
@@ -288,7 +315,7 @@ DDPG_GATE = dict(task="Cartpole", num_envs=64, eval_num_envs=32, algo__batch_siz
 DDPG_ITERS = 250
 DDPG_EVALS = (200, 225, 250)
 DDPG_THRESHOLD = 400.0
-DDPG_GATE_SEEDS = (0, 1)  # seed 0 is checked, seed 1 printed
+DDPG_GATE_SEEDS = (0,)  # the checked seed (tools/gate_trace.py traces seeds 1-4)
 # the JAX package's two-agent quick check (its verify notes: algo=ippo
 # task=BimanualReacher num_envs=1024 algo.batch_size=4096, "train/success_rate
 # should reach ~1.0"): PPO's preset otherwise, horizon 16, 4 epochs
@@ -307,7 +334,7 @@ BASELINE_ALGOS = ("ddpg", "sac", "crossq")
 BASELINE_REF = dict(num_envs=64, algo__batch_size=256, algo__memory_size=64 * 64, algo__warm_up=8)
 # the JAX bench's cartpole_ddpg_16 (bench.py:156-164): the Cartpole baseline cell and the entry point's
 DDPG_CARTPOLE_ARGV = ("algo=ddpg", "task=Cartpole", "num_envs=16", "algo.batch_size=1024", "algo.memory_size=1000000")
-DDPG_CARTPOLE_DEPTH = (8, 4, 24, 2)  # warm, blocks x iterations timed, profiled: 106 iterations
+DDPG_CARTPOLE_DEPTH = (4, 4, 12, 2)  # warm, blocks x iterations timed, profiled: 54 iterations
 BASELINE_ANT_DEPTH = (2, 2, 4, 1)  # 11 iterations after the warm-up
 BASELINE_ENTRY_ITERS = (24, 30)  # the first run stops after 24 iterations, the resumed one after 30
 BASELINE_ENTRY_EVAL_FREQ = 12  # evals at iterations 12, 24 (and 36 on no run)
@@ -335,8 +362,8 @@ TWO_AGENT_REF = [("iddpg", dict(BASELINE_REF, task="BimanualReacher")),
                  ("ippoteam2", dict(PPO_REF_SIZE, task="BimanualReacher"))]
 IDDPG_ARGV = ("algo=iddpg", "task=BimanualReacher", "num_envs=4096")
 IDDPG_DEPTH = (4, 3, 10, 2)  # warm, blocks x iterations timed, profiled: 36 iterations after the warm-up
-# (a profiled window on QTOTV1, IART and IPPOTeam only: reading a profile
-# takes 7-8 s, and the script's time limit holds the equivariant tier too)
+# (a profiled window on QTOTV1, IART and IPPOTeam only: the script's time
+# limit holds the equivariant tier too)
 TEAM_PATHS = [((f"algo={a}", "task=BimanualReacher", "num_envs=4096"), (1, 2, 1, int(a in ("qtotv1", "iart",
                                                                                           "ippoteam"))))
               for a in ("qtotv1", "qtotv2", "iart", "ippoteam", "ippoteam2")] + [
@@ -410,16 +437,16 @@ VISION_REF = [("ppov", dict(task="ReacherVision", num_envs=16, algo__horizon_len
 # 0.063% of the actor's step; seed 0 moved 4.3% card vs CPU, PERF.md §6)
 DDPGV_REF = [("ddpgv", dict(task="ReacherVision", num_envs=16, algo__horizon_len=2, algo__batch_size=64,
                             algo__memory_size=1024, algo__update_times=1, seed=3))]
-VISION_PATHS = [(("algo=ppov", "task=ReacherVision", "num_envs=4096"), (1, 1, 2, 1)),
+VISION_PATHS = [(("algo=ppov", "task=ReacherVision", "num_envs=4096"), (1, 1, 1, 1)),
                 (("algo=ippov", "task=BimanualReacherVision", "num_envs=4096"), (1, 1, 2, 1))]
 TRUNK_OPS = r"convolution|group_norm|max_pool2d"  # the ops of the ResNet trunk alone (the other nets have none)
 RENDER_REPS = 5
 VISION_ENTRY_ARGV = ("algo=ppov", "task=ReacherVision", "num_envs=4096")
-VISION_ENTRY_ITERS = (2, 3)  # an eval and a checkpoint at 2, resumed to 3 (~7.7 s per iteration)
-VISION_ENTRY_FREQ = 2
+VISION_ENTRY_ITERS = (1, 2)  # an eval and a checkpoint at 1, resumed to 2 (~8.4 s per iteration)
+VISION_ENTRY_FREQ = 1
 # the vision tier's off-policy half and multi-process PQL
 DDPGV_ARGV = ("algo=ddpgv", "task=ReacherVision", "num_envs=4096")  # batch 8192, 4 updates, memory 5e6
-DDPGV_DEPTH = (1, 2, 3, 2)  # warm, blocks x iterations timed, profiled: 9 iterations after the warm-up
+DDPGV_DEPTH = (1, 1, 3, 1)  # warm, blocks x iterations timed, profiled: 5 iterations after the warm-up
 DDPGV_ROW_BYTES = 28200  # one (slot, env) row of the host ring: two 13,824-byte frames and the fp16 rows
 HOP_REPS = 5  # timed gathers and copies of the host hop
 DDPGV_ENTRY_ITERS = (2, 4)  # an eval and a checkpoint at 2; the resumed run stops at env step 5 x E
@@ -437,6 +464,29 @@ ENTRY_RUNS = [(("algo=ppo", "task=Ant", "task_param=true"), (4, 6)),
               (("algo=ippo", "task=BimanualReacher", "num_envs=4096"), (4, 6)),
               (VISION_ENTRY_ARGV, (4, 6)),
               (IDDPG_ARGV, BASELINE_ENTRY_ITERS)]
+# The legacy contacts and the per-pair anchored loops (phase 42): seeded
+# states of the Ant and the AllegroHand at the main paths' widths. Card
+# against CPU: wrenches within the force a STEP_TOL (HAND_STEP_TOL) error of
+# position and velocity makes through the model's spring and damper (rtol
+# 1e-4, atol kp·q_atol + kd·qd_atol), the contact state within its
+# "contact" tolerance, at most PHYS_MAX_FLIPS (HAND_MAX_FLIPS) envs beyond
+# them; the matrix form against the scalar form within 2e-3 (the JAX
+# package's bound for its two forms, tests/test_scalar_physics.py); the
+# per-pair loops against the vectorized groups within the JAX package's
+# bound for them (tests/test_contact_anchored.py: wrenches 1e-4, contact
+# state 1e-5).
+LEGACY_TASKS = {"Ant": PHYS_ENVS, "AllegroHand": HAND_ENVS}
+LEGACY_FORMS_TOL = 2e-3
+ANCHORED_TOL = dict(rtol=1e-4, atol=1e-4)
+ANCHORED_STATE_ATOL = 1e-5
+LEGACY_REPS = 20  # graph replays per form timing
+# The lab (phase 43), visualize (44) and the ratio sweep (45)
+VIS_ARGV = ("algo=pql_d", "task=Cartpole", "num_envs=4096")
+VIS_ITERS = 8  # two train_block calls of 4; evals at 4 and 8 write the best model
+VIS_EPISODES = 3
+SWEEP_ARGV = ("task=AllegroHand", "num_envs=8192")  # algo=pql, fp32 (README's ratio sweep)
+SWEEP_POINTS = "8:2,4:2,16:2"
+SWEEP_SECONDS = 2.0
 SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
 
@@ -474,6 +524,7 @@ def cuda_ms(fns, iters: int, reps: int = 5) -> float:
     distinct input sets whose bytes together exceed the L2 read each set from
     device memory (cold)."""
     import torch
+    from pql_tpu_torch.envs.rigid import collected_gc
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -482,7 +533,7 @@ def cuda_ms(fns, iters: int, reps: int = 5) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collected_gc(), torch.cuda.graph(graph):
         for k in range(iters):
             fns[k % len(fns)]()
     graph.replay()
@@ -745,12 +796,21 @@ def main_path(dev, smi: str) -> dict:
     )
 
 
-def _kernel_launches(prof) -> int:
-    """Device kernel launches in a profile (kernel rows of key_averages)."""
+def device_records(prof) -> tuple[int, float]:
+    """(records, µs) of the device's work in a profile (kernels, copies and
+    sets; user annotations aside), summed over the raw Kineto events. The
+    same count and time as the device rows of ``key_averages`` without
+    building a Python event per record (``tools/profile_read.py``: a PPO
+    Ant iteration, 437,844 records and 490.038 ms either way, read in
+    1.5 s against 28.8 s on an NVIDIA H100 80GB HBM3 at 700 W, torch 2.11)."""
     from torch.autograd import DeviceType
 
-    return sum(r.count for r in prof.key_averages()
-               if r.device_type == DeviceType.CUDA and not getattr(r, "is_user_annotation", False))
+    n, us = 0, 0.0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            n += 1
+            us += e.duration_ns() / 1e3
+    return n, us
 
 
 def graph_kernel_nodes(graph) -> tuple[int, int]:
@@ -819,7 +879,6 @@ def physics_check(dev, tasks, E: int, max_flips: int) -> dict:
     import statistics
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pql_tpu_torch.envs import VecEnv, make_task
@@ -892,11 +951,10 @@ def physics_check(dev, tasks, E: int, max_flips: int) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             graph.graph.replay()
             torch.cuda.synchronize()
-        replay_in_profile = _kernel_launches(prof)
+        replay_in_profile, replay_us = device_records(prof)
         check(replay_in_profile >= 0.99 * launches, f"{name}: the profiler does not trace the graph's kernels")
         # the graph's device time: its kernels' durations in a profile of one replay
-        graph_kernel_ms = sum(_self_device_us(r) for r in prof.key_averages()
-                              if r.device_type == DeviceType.CUDA) / 1e3
+        graph_kernel_ms = replay_us / 1e3
         out[name] = dict(
             envs=E, rollout_steps=PHYS_ROLL, rollout_s=roll_s, graphed_equals_eager_bitwise=True,
             card_vs_cpu_max_abs_err=max_err, card_vs_cpu_envs_beyond_tol=flips, terminated=int(g["terminated"].sum()),
@@ -1008,9 +1066,10 @@ def rigid_main_path(dev, smi: str, argv: list[str], warm_iters: int, blocks: int
         graph.graph.replay()
         torch.cuda.synchronize()
     graph_kernels, _ = graph_kernel_nodes(graph.graph)
-    check(_kernel_launches(gprof) >= 0.99 * graph_kernels,
+    replay_records, replay_us = device_records(gprof)
+    check(replay_records >= 0.99 * graph_kernels,
           f"the profiler does not trace the {label} graph's kernels: no sim/learner split")
-    sim_ms = sum(_self_device_us(r) for r in gprof.key_averages() if r.device_type == DeviceType.CUDA) / 1e3
+    sim_ms = replay_us / 1e3
     ms = statistics.median(block_ms)
     return dict(
         config=" ".join(argv) + f" (batch {cfg.algo.batch_size}, memory {cfg.algo.memory_size:g}, fp32, "
@@ -1417,7 +1476,6 @@ def baseline_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
     import statistics
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pql_tpu_torch.algos import get_algo
@@ -1456,6 +1514,9 @@ def baseline_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
         run(profiled_iters)
         torch.cuda.synchronize()
         profiled_wall_ms = 1e3 * (time.perf_counter() - t1) / profiled_iters
+    t1 = time.perf_counter()
+    kernel_ms = device_records(prof)[1] / 1e3 / profiled_iters
+    profile_read_s = time.perf_counter() - t1
     launches = dict(kernels.LAUNCHES)
     iters = warm_iters + blocks * block_iters + profiled_iters
     lo = torch.stack(losses).cpu()
@@ -1467,11 +1528,6 @@ def baseline_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
     trackers = {k: float(v) for k, v in state.stats.metrics().items()}
     check(all(math.isfinite(v) for v in trackers.values()), f"{label} trackers {trackers}")
 
-    t1 = time.perf_counter()
-    kernel_rows = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA
-                   and not getattr(r, "is_user_annotation", False)]
-    kernel_ms = sum(_self_device_us(r) for r in kernel_rows) / 1e3 / profiled_iters
-    profile_read_s = time.perf_counter() - t1
     ms = statistics.median(block_ms)
     out = dict(
         config=" ".join(argv) + f" (batch {cfg.algo.batch_size}, memory {cfg.algo.memory_size:g}, "
@@ -1504,16 +1560,17 @@ def baseline_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
             graph.graph.replay()
             torch.cuda.synchronize()
         graph_kernels, _ = graph_kernel_nodes(graph.graph)
-        check(_kernel_launches(gprof) >= 0.99 * graph_kernels,
+        replay_records, replay_us = device_records(gprof)
+        check(replay_records >= 0.99 * graph_kernels,
               f"the profiler does not trace the {label} graph's kernels: no sim/learner split")
-        sim_ms = sum(_self_device_us(r) for r in gprof.key_averages() if r.device_type == DeviceType.CUDA) / 1e3
+        sim_ms = replay_us / 1e3
         out.update(sim_graph_device_ms_per_iter=sim_ms, learner_and_rest_device_ms_per_iter=kernel_ms - sim_ms,
                    launches_per_control_step=graph_kernels)
     return out
 
 
 def baseline_main_path(dev, smi: str) -> dict:
-    """DDPG on Cartpole @16 (the JAX bench's cartpole_ddpg_16) for 106
+    """DDPG on Cartpole @16 (the JAX bench's cartpole_ddpg_16) for 54
     iterations, then DDPG, SAC and CrossQ on Ant @4096 (batch 8192, memory
     5e6: ring 1220 x 4096 x 78 fp32; CrossQ's critic sees 16,384 rows per
     update) for 11 iterations each after the warm-up."""
@@ -1635,8 +1692,7 @@ def baseline_entry_path(dev, smi: str, argv=DDPG_CARTPOLE_ARGV, iters=BASELINE_E
 
 def ddpg_learning_gate(dev) -> dict:
     """The JAX package's DDPG gate: seed 0's best eval return at iterations
-    ``DDPG_EVALS`` must pass; seed 1 is printed (seeds 2-4:
-    ``tools/gate_trace.py``)."""
+    ``DDPG_EVALS`` must pass (seeds 1-4: ``tools/gate_trace.py``)."""
     from pql_tpu_torch.ops import kernels
 
     out = {}
@@ -1860,10 +1916,8 @@ def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
     if not profiled_iters:
         return out
     t1 = time.perf_counter()
-    kernel_rows = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA
-                   and not getattr(r, "is_user_annotation", False)]
-    kernel_ms = sum(_self_device_us(r) for r in kernel_rows) / 1e3 / profiled_iters
-    window_launches = sum(r.count for r in kernel_rows)
+    window_launches, window_us = device_records(prof)
+    kernel_ms = window_us / 1e3 / profiled_iters
     out.update(profiled_wall_ms_per_iter=profiled_wall_ms, device_ms_per_iter=kernel_ms,
                device_busy_share=kernel_ms / ms, kernel_launches_per_iter=window_launches / profiled_iters,
                profile_read_s=time.perf_counter() - t1)
@@ -1878,11 +1932,12 @@ def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
             graph.graph.replay()
             torch.cuda.synchronize()
         graph_kernels, _ = graph_kernel_nodes(graph.graph)
-        check(_kernel_launches(gprof) >= 0.99 * graph_kernels,
+        replay_records, replay_us = device_records(gprof)
+        check(replay_records >= 0.99 * graph_kernels,
               f"the profiler does not trace the {label} graph's kernels: no sim/learner split")
         check(window_launches >= 0.99 * H * graph_kernels * profiled_iters,
               f"the {label} profile window lost kernel records: {window_launches} for {H} x {graph_kernels} graph nodes")
-        sim_ms = H * sum(_self_device_us(r) for r in gprof.key_averages() if r.device_type == DeviceType.CUDA) / 1e3
+        sim_ms = H * replay_us / 1e3
         out.update(sim_graph_device_ms_per_iter=sim_ms, learner_and_rest_device_ms_per_iter=kernel_ms - sim_ms,
                    launches_per_control_step=graph_kernels, graph_build_s=graph.build_s)
     return out
@@ -2821,6 +2876,527 @@ def dist_one_rank(dev, smi: str, argv=DIST_ARGV, iters: int = DIST_ITERS) -> dic
                 allreduce_ms=allreduce_ms, backend="nccl", world_size=1)
 
 
+def _quat_to_mat_np(quat):
+    w, x, y, z = np.moveaxis(quat, -1, 0)
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def legacy_states(task, E: int, seed: int = 0):
+    """(q, qd, contact state) float32 numpy states of a task at E envs that
+    reach every branch of its contact groups (the CPU tests' constructions,
+    tests/test_torch_legacy_contact.py and tests/test_torch_contact_hand.py).
+
+    Ant: the free base from 10 cm under the ground to 60 cm over it, any
+    orientation (half near upright), hinges across and past their limits,
+    velocities N(0, 2-3): spheres separated, penetrating, capped, pressed
+    apart faster than the spring pushes, with Coulomb-limited and viscous
+    friction. AllegroHand: envs with e % 8 in 0..4 put one finger sphere
+    inside the cube nearest the x, y or z face, just outside a face or just
+    outside a corner; the others drop the cube near the palm. Every pair's
+    anchor lies 1e-6 to 1e-2 m off its tracked point, engaged at random."""
+    import torch
+    from pql_tpu_torch.envs.hand import CUBE_HALF
+    from pql_tpu_torch.physics import contact as tc
+    from pql_tpu_torch.physics import dynamics as td
+
+    rng = np.random.RandomState(seed)
+    m = task.model
+    cols = lambda a: [torch.from_numpy(np.ascontiguousarray(a[:, i])) for i in range(a.shape[1])]  # noqa: E731
+    arr = lambda x: np.stack([arr(y) for y in x]) if isinstance(x, list) else (  # noqa: E731
+        x.numpy() if isinstance(x, torch.Tensor) else np.full(E, x))
+    if not hasattr(task, "cube"):
+        q = np.tile(np.asarray(m.neutral_q(), np.float64), (E, 1))
+        quat = rng.normal(size=(E, 4))
+        quat[: E // 2] = [1.0, 0.0, 0.0, 0.0] + 0.2 * quat[: E // 2]
+        q[:, 3:7] = quat / np.linalg.norm(quat, axis=-1, keepdims=True)
+        q[:, 2] = rng.uniform(-0.1, 0.6, E)
+        q[:, 7:] = rng.uniform(-1.5, 1.5, (E, m.nq - 7))
+        qd = rng.normal(0.0, 2.0, (E, m.nv))
+        qd[:, 3:6] = rng.normal(0.0, 3.0, (E, 3))
+        R, p, _, _ = td._kin_s(m, cols(q))
+        points = np.stack([arr(p[g.body]).T + np.einsum("rce,c->er", arr(R[g.body]), np.asarray(g.offset))
+                           for g in m.geoms], 1)
+    else:
+        n_dof, cq, ng = task.n_dof, task.cube_q, len(m.geoms)
+        lo, hi = m.limit_lo[:n_dof], m.limit_hi[:n_dof]
+        q = np.zeros((E, m.nq))
+        q[:, :n_dof] = lo + (hi - lo) * rng.uniform(0.05, 0.95, (E, n_dof))
+        quat = rng.normal(size=(E, 4))
+        quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+        q[:, cq + 3 : cq + 7] = quat
+        R, p, _, _ = td._kin_s(m, cols(q))
+        centres = np.stack([arr(p[g.body]).T + np.einsum("rce,c->er", arr(R[g.body]), np.asarray(g.offset))
+                            for g in m.geoms], 1)
+        h, r = CUBE_HALF, m.geoms[0].radius
+        Rb, kind, e = _quat_to_mat_np(quat), np.arange(E) % 8, np.arange(E)
+        s = rng.choice([-1.0, 1.0], (E, 3))
+        local = s * rng.uniform(0.0, 0.5, (E, 3)) * h
+        inside = kind <= 2
+        local[e[inside], kind[inside]] = s[e[inside], kind[inside]] * 0.8 * h
+        face = kind == 3
+        local[face] = s[face] * rng.uniform(0.0, 0.7, (face.sum(), 3)) * h
+        local[e[face], e[face] % 3] = s[e[face], e[face] % 3] * (h + 0.5 * r)
+        corner = kind == 4
+        local[corner] = s[corner] * (h + 0.3 * r)
+        j = rng.randint(ng, size=E)
+        q[:, cq : cq + 3] = centres[e, j] - np.einsum("erc,ec->er", Rb, local)
+        drop = kind >= 5
+        q[drop, cq : cq + 3] = np.concatenate([rng.uniform(-0.05, 0.05, (drop.sum(), 2)),
+                                               rng.uniform(0.0, 0.06, (drop.sum(), 1))], -1)
+        qd = np.concatenate([rng.normal(0.0, 2.0, (E, n_dof)), rng.normal(0.0, 0.3, (E, 6))], -1)
+        pos = q[:, cq : cq + 3]
+        rel = np.einsum("erc,ejr->ejc", Rb, centres - pos[:, None])
+        corners = pos[:, None] + np.einsum("erc,jc->ejr", Rb, np.asarray(tc._CORNER_SIGNS) * h)
+        points = np.concatenate([centres, rel, corners], 1)  # the hand's pair slots
+    off = rng.normal(size=points.shape)
+    off *= (10.0 ** rng.uniform(-6, -2, points.shape[:2]))[..., None] / np.linalg.norm(off, axis=-1, keepdims=True)
+    engaged = rng.randint(0, 2, points.shape[:2])
+    cs = np.concatenate([points + off, engaged[..., None]], -1).reshape(E, -1)
+    f32 = lambda x: np.ascontiguousarray(x, np.float32)  # noqa: E731
+    return f32(q), f32(qd), f32(cs)
+
+
+def graph_cost(fn, reps: int = LEGACY_REPS) -> dict:
+    """``fn()`` captured in one CUDA graph (warm-up off the capture first):
+    its kernel nodes (libcuda) and the mean ms of ``reps`` replays between
+    CUDA events. Raises if the function cannot be captured."""
+    import torch
+    from pql_tpu_torch.envs.rigid import collected_gc
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with collected_gc(), torch.cuda.graph(graph):
+        fn()
+    kernels, _ = graph_kernel_nodes(graph)
+    check(kernels > 0, "an empty graph: the function launched nothing on the capturing stream")
+    graph.instantiate()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return dict(kernel_nodes=kernels, ms=start.elapsed_time(end) / reps)
+
+
+def _branch_spies(counts: dict):
+    """Patches of the port's contact cores that count, per branch, the pairs
+    that took it (torch ops on the inputs; eager calls only)."""
+    from unittest import mock
+
+    import torch
+    from pql_tpu_torch.physics import contact as tc
+    from pql_tpu_torch.physics import scalar_algebra as sa
+
+    def add(name, mask):
+        counts[name] = counts.get(name, 0) + int(mask.sum())
+
+    viscous_core, anchored_core, in_box = tc._contact_force_s, tc._anchored_force_s, tc._sphere_in_box_s
+
+    def viscous(depth, normal, vel, kp, kd, mu, cap, ref):
+        d = tc._col(depth, ref)
+        vn = sa.v3_dot(vel, normal)
+        raw = kp * d - kd * vn
+        vt = sa.v3_norm(sa.v3_sub(vel, sa.v3_scale(normal, vn))) + 1e-6
+        active, fn = d > 0.0, torch.clamp(raw, 0.0, cap)
+        add("viscous_separated", ~active)
+        add("viscous_penetrating", active)
+        add("viscous_capped", active & (raw > cap))
+        add("viscous_pulled_apart", active & (raw < 0.0))
+        add("viscous_coulomb_limited", active & (raw > 0.0) & (mu * fn < 2.0 * kd * vt))
+        add("viscous_damped", active & (raw > 0.0) & (mu * fn > 2.0 * kd * vt))
+        return viscous_core(depth, normal, vel, kp, kd, mu, cap, ref)
+
+    def anchored(depth, normal, vel, dx, engaged, pp):
+        force, dxt_new, active = anchored_core(depth, normal, vel, dx, engaged, pp)
+        act, eng = active > 0.5, engaged > 0.5
+        moved = sa.v3_norm(sa.v3_sub(dxt_new, sa.v3_sub(dx, sa.v3_scale(normal, sa.v3_dot(dx, normal)))))
+        add("anchored_separated", ~act)
+        add("anchored_fresh_touch", act & ~eng)
+        add("anchored_sticking", act & eng & (moved == 0.0))
+        add("anchored_sliding", act & eng & (moved > 0.0))
+        return force, dxt_new, active
+
+    def sphere_in_box(local, half, radius):
+        add("sphere_inside_box", (torch.abs(local[0]) < half[0]) & (torch.abs(local[1]) < half[1])
+            & (torch.abs(local[2]) < half[2]))
+        return in_box(local, half, radius)
+
+    return [mock.patch.object(tc, "_contact_force_s", viscous), mock.patch.object(tc, "_anchored_force_s", anchored),
+            mock.patch.object(tc, "_sphere_in_box_s", sphere_in_box)]
+
+
+def legacy_contact_check(dev, smi: str) -> dict:
+    """The legacy viscous groups in both forms and the per-pair anchored
+    loops on seeded states (``legacy_states``) of the Ant @4096 (the ground
+    group) and the AllegroHand @8192 (all three groups): the matrix form
+    against the scalar form and the loops against the vectorized groups on
+    the card, the card against the CPU, the branches reached; each form's
+    kernel nodes and graph ms; then one Ant control step (``physics_substeps``
+    with ``ground_contacts_s``) graphed, bitwise its eager step and within
+    STEP_TOL of the CPU's."""
+    import contextlib
+    import statistics
+
+    import torch
+    from pql_tpu_torch.envs import make_task
+    from pql_tpu_torch.envs.hand import CUBE_HALF
+    from pql_tpu_torch.envs.rigid import GraphedStep
+    from pql_tpu_torch.physics import contact as tc
+    from pql_tpu_torch.physics import dynamics as td
+    from pql_tpu_torch.physics.contact import add_fext_s
+
+    cpu = torch.device("cpu")
+    out = {}
+    for name, E in LEGACY_TASKS.items():
+        task = make_task(name)
+        m = task.model
+        tol = step_tol(task)
+        q_atol, qd_atol = tol["q"][1], HAND_STEP_TOL["qd"][1] if name in HAND_TASKS else tol["qd"][1]
+        force_tol = (1e-4, m.contact_kp * q_atol + m.contact_kd * qd_atol)
+        max_flips = HAND_MAX_FLIPS if name in HAND_TASKS else PHYS_MAX_FLIPS
+        q, qd, cs = legacy_states(task, E, seed=0)
+
+        def kin(device):
+            cols = lambda a: [torch.from_numpy(np.ascontiguousarray(a[:, i])).to(device) for i in range(a.shape[1])]  # noqa: E731
+            R, p, X, S = td._kin_s(m, cols(q))
+            v = td._vel_s(m, X, S, cols(qd))
+            ref = cols(q)[0]
+            st = lambda c: c if isinstance(c, torch.Tensor) else torch.full_like(ref, c)  # noqa: E731
+            Rm = torch.stack([torch.stack([torch.stack([st(c) for c in row], -1) for row in Rb], -2) for Rb in R], -3)
+            pm = torch.stack([torch.stack([st(c) for c in pb], -1) for pb in p], -2)
+            vm = torch.stack([torch.stack([st(c) for c in vb], -1) for vb in v], -2)
+            return R, p, v, cols(cs), (Rm, pm, vm)
+
+        def wrench(f, ref):
+            return torch.stack([torch.stack([c if isinstance(c, torch.Tensor) else torch.full_like(ref, c)
+                                             for c in row], -1) for row in f], -2)
+
+        def column_stack(cols_, ref):
+            return torch.stack([c if isinstance(c, torch.Tensor) else torch.full_like(ref, c) for c in cols_], -1)
+
+        groups = {"ground": (lambda k: tc.ground_contacts(m, *k[4]), lambda k: tc.ground_contacts_s(m, *k[:3]))}
+        card_dev = torch.empty(0, device=dev).device  # cuda:<index> as the tensors report it
+        pairs = {d: tc.ground_pairs(m, task._pp_ground, d) for d in (card_dev, cpu)}
+        anchored = {"ground anchored": (
+            lambda k: _stateful_call(tc.ground_anchored_s, m, k, 0, task._pp_ground),
+            lambda k: _stateful_call(tc.ground_anchored_v, m, k, 0, pairs[k[3][0].device]),
+        )}
+        if name in HAND_TASKS:
+            cube, half = task.cube, [CUBE_HALF] * 3
+
+            def half_t(k):
+                return torch.full((3,), CUBE_HALF, device=k[3][0].device)
+
+            groups["sphere_box"] = (lambda k: tc.sphere_box_contacts(m, *k[4], cube, half_t(k)),
+                                    lambda k: tc.sphere_box_contacts_s(m, *k[:3], cube, half))
+            groups["box_ground"] = (lambda k: (tc.box_ground_contacts(m, *k[4], cube, half_t(k)), None),
+                                    lambda k: (tc.box_ground_contacts_s(m, *k[:3], cube, half), None))
+
+            def scalar_loops(k):
+                R, p, v, cs_ = k[:4]
+                cs_new = list(cs_)
+                f1, idx = tc.ground_anchored_s(m, R, p, v, cs_, cs_new, 0, task._pp_ground)
+                f2, idx = tc.sphere_box_anchored_s(m, R, p, v, cube, half, cs_, cs_new, idx, task._pp_cube)
+                f3, _ = tc.box_ground_anchored_s(m, R, p, v, cube, half, cs_, cs_new, idx, task._pp_corner)
+                return add_fext_s(f1, f2, f3), cs_new
+
+            anchored = {"hand contact function": (scalar_loops, lambda k: task._contact_fn(task._on(k[3][0].device))(
+                m, *k[:4]))}
+
+        def evaluate(device, spies=False):
+            counts = {}
+            with contextlib.ExitStack() as stack:
+                for patch in (_branch_spies(counts) if spies else []):
+                    stack.enter_context(patch)
+                k = kin(device)
+                ref = k[3][0]
+                res = {}
+                for g, (mat_fn, sc_fn) in groups.items():
+                    fm, mm = mat_fn(k)
+                    fs, ms = sc_fn(k)
+                    res[g] = dict(matrix=fm, scalar=wrench(fs, ref), mags_matrix=mm,
+                                  mags_scalar=None if ms is None else column_stack(ms, ref))
+                for g, (loop_fn, vec_fn) in anchored.items():
+                    fl, csl = loop_fn(k)
+                    fv, csv = vec_fn(k)
+                    res[g] = dict(loops=wrench(fl, ref), loops_cs=column_stack(csl, ref),
+                                  vectorized=wrench(fv, ref), vectorized_cs=column_stack(csv, ref))
+            return res, counts
+
+        card, counts = evaluate(torch.device(dev), spies=True)
+        host, _ = evaluate(cpu)
+        torch.cuda.synchronize()
+        checks, flips = {}, {}
+        for g, r in card.items():
+            if "matrix" in r:
+                err = float((r["matrix"] - r["scalar"]).abs().max())
+                check(err <= LEGACY_FORMS_TOL, f"{name} {g}: matrix and scalar forms {err:.3g} apart")
+                checks[f"{g} matrix vs scalar"] = err
+                if r["mags_matrix"] is not None:
+                    err = float((r["mags_matrix"] - r["mags_scalar"]).abs().max())
+                    check(err <= LEGACY_FORMS_TOL, f"{name} {g}: magnitudes of the two forms {err:.3g} apart")
+                fields = {"matrix": force_tol, "scalar": force_tol}
+            else:
+                ferr = (r["loops"] - r["vectorized"]).abs()
+                check(bool((ferr <= ANCHORED_TOL["atol"] + ANCHORED_TOL["rtol"] * r["vectorized"].abs()).all()),
+                      f"{name} {g}: per-pair loops and vectorized groups {float(ferr.max()):.3g} apart")
+                cerr = float((r["loops_cs"] - r["vectorized_cs"]).abs().max())
+                check(cerr <= ANCHORED_STATE_ATOL, f"{name} {g}: contact states {cerr:.3g} apart")
+                checks[f"{g} loops vs vectorized"] = dict(wrench=float(ferr.max()), contact_state=cerr)
+                fields = {"loops": force_tol, "loops_cs": tol["contact"], "vectorized": force_tol,
+                          "vectorized_cs": tol["contact"]}
+            got = {k: v.reshape(E, -1) for k, v in r.items() if k in fields}
+            want = {k: host[g][k].reshape(E, -1) for k in got}
+            got["terminated"] = want["terminated"] = torch.zeros(E, dtype=torch.bool)
+            off, max_err = envs_beyond_tol(got, want, fields, E)
+            check(len(off) <= max_flips, f"{name} {g}: card and CPU differ beyond tolerance in envs {off}")
+            flips[g] = dict(envs_beyond_tol=off, max_abs_err=max_err)
+        for branch in ("viscous_separated", "viscous_penetrating", "viscous_capped", "viscous_pulled_apart",
+                       "viscous_coulomb_limited", "viscous_damped", "anchored_separated", "anchored_fresh_touch",
+                       "anchored_sticking", "anchored_sliding") + (("sphere_inside_box",) if name in HAND_TASKS else ()):
+            check(counts.get(branch, 0) > 0, f"{name}: no pair took the branch {branch}")
+
+        k = kin(torch.device(dev))
+        costs = {}
+        for g, (mat_fn, sc_fn) in groups.items():
+            costs[f"{g} matrix"] = graph_cost(lambda: mat_fn(k))
+            costs[f"{g} scalar"] = graph_cost(lambda: sc_fn(k))
+        for g, (loop_fn, vec_fn) in anchored.items():
+            costs[f"{g} per-pair loops"] = graph_cost(lambda: loop_fn(k))
+            costs[f"{g} vectorized"] = graph_cost(lambda: vec_fn(k))
+        out[name] = dict(envs=E, branches=counts, forms=checks, card_vs_cpu=flips, card=smi, form_costs=costs,
+                         force_tol=force_tol)
+
+    # one Ant control step with the legacy ground contacts as its contact function
+    task = make_task("Ant")
+    E = LEGACY_TASKS["Ant"]
+    gen = torch.Generator().manual_seed(0)
+    state = task.init_state(task.draw_reset(gen, E).to(dev))
+    state = {k: v for k, v in state.items() if k != "contact"}
+    action = (torch.rand(E, task.action_dim, generator=gen) * 2.0 - 1.0).to(dev)
+
+    def legacy_step(st, a):
+        q2, qd2 = td.physics_substeps(task.model, st["q"], st["qd"], a, task.substeps,
+                                      contact_fn=lambda m, R, p, v: tc.ground_contacts_s(m, R, p, v)[0])
+        return {"q": q2, "qd": qd2}, q2[:, 2], ~torch.isfinite(q2).all(-1), {}
+
+    graphed_step = GraphedStep(legacy_step, state, action)
+    g_out = graphed_step(state, action)
+    e_out = legacy_step(state, action)
+    c_out = legacy_step({k: v.cpu() for k, v in state.items()}, action.cpu())
+    torch.cuda.synchronize()
+    for key in ("q", "qd"):
+        check(torch.equal(g_out[0][key], e_out[0][key]), f"the legacy Ant step: graphed and eager differ in {key}")
+    got = dict(g_out[0], terminated=g_out[2])
+    want = dict(c_out[0], terminated=c_out[2])
+    step_off, step_err = envs_beyond_tol(got, want, {k: STEP_TOL[k] for k in ("q", "qd")}, E)
+    check(len(step_off) <= PHYS_MAX_FLIPS, f"the legacy Ant step: card and CPU differ beyond STEP_TOL in {step_off}")
+    nodes, _ = graph_kernel_nodes(graphed_step.graph)
+    period = []
+    for _ in range(PHYS_TIMINGS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(PHYS_REPS):
+            graphed_step.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        period.append(start.elapsed_time(end) / PHYS_REPS)
+    eager_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        legacy_step(state, action)
+        torch.cuda.synchronize()
+        eager_ms.append(1e3 * (time.perf_counter() - t1))
+    out["ant_legacy_control_step"] = dict(
+        envs=E, graphed_equals_eager_bitwise=True, card_vs_cpu_envs_beyond_tol=step_off,
+        card_vs_cpu_max_abs_err=step_err, launches_per_control_step=nodes,
+        graph_replay_period_ms=statistics.median(period), graph_replay_period_ms_timings=period,
+        eager_wall_ms=statistics.median(eager_ms), graph_build_s=graphed_step.build_s, card=smi)
+    return out
+
+
+def _stateful_call(fn, m, k, base, pairs):
+    """A stateful ground group on the kinematics ``k`` = (R, p, v, cs, …):
+    (f_ext, the new contact state columns)."""
+    cs_new = list(k[3])
+    f, _ = fn(m, k[0], k[1], k[2], k[3], cs_new, base, pairs)
+    return f, cs_new
+
+
+def contact_lab_phase(dev, smi: str) -> dict:
+    """Every scene of ``pql_tpu_torch.contact_lab`` on the card, its printed
+    lines kept: verdict, numbers, wall seconds, control steps and the kernel
+    nodes of each captured control step it replayed. Fails if a scene
+    outside ``KNOWN_REGRESSIONS`` fails."""
+    import contextlib
+    import io
+
+    import torch
+    from pql_tpu_torch import contact_lab
+
+    scenes, verdicts = {}, {}
+    for name, scene in contact_lab.SCENARIOS.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = scene(dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        verdicts[name] = res.ok
+        nodes = [graph_kernel_nodes(s.graph)[0] for s in res.steps]
+        scenes[name] = dict(ok=res.ok, numbers=res.numbers, wall_s=wall, control_steps=res.control_steps,
+                            graph_kernel_nodes_per_control_step=sorted(set(nodes)), graphs_captured=len(nodes),
+                            printed=buf.getvalue().strip().splitlines())
+    bad, known = contact_lab.gate(verdicts)
+    check(not bad, f"lab scenes outside KNOWN_REGRESSIONS fail: {bad}")
+    return dict(card=smi, scenes=scenes, failing_known_regressions=known, all_pass_but_known=True)
+
+
+def visualize_path(dev, smi: str) -> dict:
+    """``train.main`` (PQL-D Cartpole @4096, VIS_ITERS iterations with evals)
+    writes a best model; ``pql_tpu_torch.visualize`` rolls it for
+    VIS_EPISODES episode batches; an ``Evaluator`` built from the same
+    snapshot with the same generator must print and return the same."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+    from pql_tpu_torch import train, visualize
+    from pql_tpu_torch.algos import get_algo
+    from pql_tpu_torch.cfg import Config, parse_cli
+    from pql_tpu_torch.envs import make_env
+    from pql_tpu_torch.ops import kernels
+    from pql_tpu_torch.utils.checkpoint import load_model_snapshot, restore_into_state
+    from pql_tpu_torch.utils.evaluator import Evaluator
+
+    root = os.path.join(SMOKE_DIR, "visualize")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = parse_cli(list(VIS_ARGV))
+    ipc, warm, E = cfg.algo.iters_per_call, cfg.algo.warm_up, cfg.num_envs
+    argv = list(VIS_ARGV) + [f"max_step={(warm + VIS_ITERS - ipc) * E}", f"algo.eval_freq={ipc}",
+                             f"logging.out_dir={root}/runs", "logging.run_name=vis", "logging.console=false",
+                             f"--device={dev}"]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    train.main(argv)
+    torch.cuda.synchronize()
+    train_s, train_launches = time.perf_counter() - t0, dict(kernels.LAUNCHES)
+    check(train_launches["c51_td_target"] == 8 * VIS_ITERS, f"c51_td_target {train_launches} in train.main")
+    best = os.path.join(root, "runs", "vis", "best_model")
+    check(os.path.isdir(best), "train.main wrote no best model")
+
+    vis_argv = [VIS_ARGV[0], VIS_ARGV[1], f"artifact={best}", f"episodes={VIS_EPISODES}", f"--device={dev}"]
+    buf = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        printed_metrics = visualize.main(vis_argv)
+    torch.cuda.synchronize()
+    vis_s, vis_launches = time.perf_counter() - t0, dict(kernels.LAUNCHES)
+    check(vis_launches["c51_td_target"] == 0, "visualize launched the C51 kernel")
+    lines = buf.getvalue().strip().splitlines()
+    check(len(lines) == VIS_EPISODES == len(printed_metrics), f"visualize printed {lines}")
+
+    # the same snapshot and generator, by hand
+    vcfg = parse_cli(vis_argv[:3], base=Config(num_envs=16, eval_num_envs=16))
+    agent = get_algo(vcfg.algo.name)(vcfg, dev)
+    state = agent.init()
+    state = restore_into_state(state, load_model_snapshot(best), agent.snapshot_parts(state))
+    ev = Evaluator(vcfg, make_env(vcfg), agent.eval_actor_apply, dev)
+    gen = torch.Generator(device=dev).manual_seed(vcfg.seed + 1)
+    want, ms = [], []
+    for _ in range(VIS_EPISODES):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want.append(ev.eval_policy(agent.eval_params(state), state.obs_rms, gen))
+        ms.append(1e3 * (time.perf_counter() - t1))
+    for ep, (line, got, w) in enumerate(zip(lines, printed_metrics, want)):
+        check(got == w, f"episode batch {ep}: visualize {got} vs the Evaluator {w}")
+        expect = f"episode batch {ep}: return={w['eval/return']:.2f} length={w['eval/episode_length']:.1f}"
+        check(line == expect, f"printed {line!r}, expected {expect!r}")
+        check(math.isfinite(w["eval/return"]), "non-finite eval return")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(config=" ".join(VIS_ARGV) + f", {VIS_ITERS} iterations through train.main", card=smi,
+                train_main_s=train_s, visualize_s=vis_s, printed=lines, returns=[w["eval/return"] for w in want],
+                equal_to_evaluator=True, ms_per_episode_batch=ms, eval_envs=ev.env.num_envs,
+                eval_steps=ev.env.max_episode_length, launches=vis_launches, train_main_launches=train_launches)
+
+
+def ratio_sweep_phase(dev, smi: str) -> dict:
+    """``pql_tpu_torch.ratio_sweep.main`` on AllegroHand @8192 (algo=pql)
+    at SWEEP_POINTS for SWEEP_SECONDS each: per point exactly cs and cs/ca
+    updates per iteration (horizon 1) over the timed window, the printed
+    JSON record with the JAX script's keys, finite rates and eval return,
+    0 ``c51_td_target`` launches, and the table file."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    import torch
+    from pql_tpu_torch import ratio_sweep
+    from pql_tpu_torch.cfg import parse_cli
+    from pql_tpu_torch.ops import kernels
+
+    keys = ["critic_sample_ratio", "critic_actor_ratio", "seconds", "env_steps_per_s", "critic_updates_per_s",
+            "actor_updates_per_s", "train_return_final", "train_return_slope_per_s", "eval_return"]
+    windows, launches = [], []
+    measure = ratio_sweep.run_point
+
+    def recorded(cfg, cs, ca, seconds, device="cuda", eval_env=None):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        record, window = measure(cfg, cs, ca, seconds, device, eval_env)
+        torch.cuda.synchronize()
+        windows.append(dict(window, point_wall_s=time.perf_counter() - t0))
+        launches.append(dict(kernels.LAUNCHES))
+        torch.cuda.empty_cache()
+        return record, window
+
+    out_file = os.path.join(SMOKE_DIR, "ratio_sweep.json")
+    argv = list(SWEEP_ARGV) + [f"sweep={SWEEP_POINTS}", f"seconds_per_point={SWEEP_SECONDS}", f"out={out_file}",
+                               f"--device={dev}"]
+    buf = io.StringIO()
+    with mock.patch.object(ratio_sweep, "run_point", recorded), contextlib.redirect_stdout(buf):
+        results = ratio_sweep.main(argv)
+    printed = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    check(printed == results, "the printed records differ from the returned ones")
+    with open(out_file) as f:
+        table = json.load(f)
+    check(list(table) == ["task", "num_envs", "batch_size", "seconds_per_point", "points"]
+          and table["points"] == results, "the table file")
+    horizon = parse_cli(list(SWEEP_ARGV)).algo.horizon_len
+    points = []
+    for spec, r, w, n in zip(SWEEP_POINTS.split(","), results, windows, launches):
+        cs, ca = (int(x) for x in spec.split(":"))
+        check(list(r) == keys, f"point {spec}: keys {list(r)}")
+        it = w["iterations"]
+        check(it > 0 and w["critic_updates"] == cs * horizon * it and w["actor_updates"] == max(cs // ca, 1) * horizon * it,
+              f"point {spec}: {w['critic_updates']} critic and {w['actor_updates']} actor updates in {it} iterations")
+        check(w["env_steps"] == it * horizon, f"point {spec}: {w['env_steps']} env steps per env")
+        check(all(math.isfinite(r[k]) for k in keys if r[k] is not None), f"point {spec}: non-finite {r}")
+        check(n["c51_td_target"] == 0, f"point {spec}: c51_td_target launched {n['c51_td_target']} times")
+        points.append(dict(record=r, window=w, critic_updates_per_iter=w["critic_updates"] / it,
+                           actor_updates_per_iter=w["actor_updates"] / it,
+                           ms_per_iter=1e3 * w["seconds"] / it,
+                           all_env_steps_per_s=w["env_steps"] * table["num_envs"] / w["seconds"], launches=n))
+    os.remove(out_file)
+    return dict(config=" ".join(SWEEP_ARGV) + f" algo=pql sweep={SWEEP_POINTS} seconds_per_point={SWEEP_SECONDS}",
+                card=smi, points=points, launches={k: sum(n[k] for n in launches) for k in launches[0]})
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -2940,6 +3516,14 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="ddpgv_entry_path", wall_s=s, **gentry))
     one_rank, s = timed(dist_one_rank, dev, smi)
     emit(dict(phase="dist_one_rank", wall_s=s, **one_rank))
+    legacy, s = timed(legacy_contact_check, dev, smi)
+    emit(dict(phase="legacy_contact_check", wall_s=s, **legacy))
+    lab, s = timed(contact_lab_phase, dev, smi)
+    emit(dict(phase="contact_lab", wall_s=s, **lab))
+    vis, s = timed(visualize_path, dev, smi)
+    emit(dict(phase="visualize_path", wall_s=s, **vis))
+    sweep, s = timed(ratio_sweep_phase, dev, smi)
+    emit(dict(phase="ratio_sweep", wall_s=s, **sweep))
 
     by_path = {"pql_d Cartpole@4096": main["launches"], "pql_d AllegroHand@16384": allegro_d["launches"],
                "pql_d Cartpole@4096 entry point": entry["launches"],
@@ -2967,7 +3551,10 @@ def main(argv: list[str]) -> int:
                "ddpgv card-vs-CPU reference runs": gref["launches"],
                "algo=ddpgv ReacherVision@4096": gmain["launches"],
                "algo=ddpgv ReacherVision@4096 entry point": gentry["launches"],
-               "pql_d Cartpole@4096 one-rank NCCL group": one_rank["launches"]}
+               "pql_d Cartpole@4096 one-rank NCCL group": one_rank["launches"],
+               "pql_d Cartpole@4096 train.main writing the visualized model": vis["train_main_launches"],
+               "visualize of the pql_d Cartpole model": vis["launches"],
+               "pql AllegroHand@8192 ratio sweep": sweep["launches"]}
     emit({"kernels": [
         dict(name=c["name"], route="cuda", source=kernels.KERNELS[c["name"]]["source"],
              replaces=kernels.KERNELS[c["name"]]["replaces"],

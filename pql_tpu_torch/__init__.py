@@ -8,7 +8,8 @@ CUDA kernel bound in ``ops/kernels.py``, sources in ``csrc/``), ``replay``,
 ``models``, ``algos`` and ``utils``. It imports torch and numpy and nothing
 of JAX.
 
-Entry points run on ``device="cuda"``; only an explicit ``device="cpu"``
-runs on the CPU (the tests do). Nothing falls back to the CPU when no
+Entry points (``train``, ``contact_lab``, ``visualize``, ``ratio_sweep``,
+each ``python -m pql_tpu_torch.<name>``) run on ``device="cuda"``; only an
+explicit ``device="cpu"`` runs on the CPU (the tests do). Nothing falls back to the CPU when no
 card is found.
 """

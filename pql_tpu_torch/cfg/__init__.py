@@ -6,9 +6,11 @@ from pql_tpu_torch.cfg.config import (
     LoggingConfig,
     NoiseConfig,
     algo_config,
+    entry_device,
     make_config,
     parse_cli,
     platform_device,
+    require_card,
     to_dict,
 )
 
@@ -18,8 +20,10 @@ __all__ = [
     "LoggingConfig",
     "NoiseConfig",
     "algo_config",
+    "entry_device",
     "make_config",
     "parse_cli",
     "platform_device",
+    "require_card",
     "to_dict",
 ]

@@ -23,6 +23,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Any
 
+import torch
+
 
 @dataclass
 class NoiseConfig:
@@ -260,6 +262,22 @@ def platform_device(platform: str | None) -> str | None:
     if key not in _PLATFORM_DEVICES:
         raise ValueError(f"Unknown platform {platform!r}; want one of {sorted(_PLATFORM_DEVICES)}")
     return _PLATFORM_DEVICES[key]
+
+
+def entry_device(cfg: Config, device: str | None) -> str:
+    """An entry point's device: ``--device`` if given, else the one that
+    ``platform=`` names, else the card; a platform that contradicts
+    ``--device`` is an error."""
+    by_platform = platform_device(cfg.platform)
+    if by_platform is not None and device is not None and torch.device(device).type != by_platform:
+        raise SystemExit(f"platform={cfg.platform} contradicts --device={device}")
+    return device or by_platform or "cuda"
+
+
+def require_card(device) -> None:
+    """Refuse a run on the card where there is none."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device found (pass --device=cpu to run on the CPU)")
 
 
 def preprocess_config(cfg: Config) -> Config:

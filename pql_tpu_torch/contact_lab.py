@@ -1,0 +1,599 @@
+"""Contact-fidelity lab (port of scripts/contact_lab.py): isolated physics
+scenes with pass bars, no RL in the loop, so a contact-model change is
+judged in seconds. The contact model's executable spec:
+
+  cube_rest    free cube at rest on the plane: pose drift + qd jitter
+  cube_settle  dropped 5 mm, and tilted 3 deg: both come to rest
+  cube_push    constant lateral force below/above the Coulomb cone:
+               a sub-cone push must NOT slide the cube (static friction)
+  cube_twist   constant yaw torque: corner friction must resist
+  cube_tip     lateral force applied at the TOP edge: the cube must TIP
+               (roll over an edge) rather than slide away
+  ant_stand    Ant, zero actions: height hold + foot slip chatter
+  hand_pinch   scripted finger curl+abduction on the AllegroHand model:
+               squeeze the cube, sweep the abduction joints, and measure
+               how much cube yaw the fingers drag
+  hand_goal    closed-loop scripted finger gaiting to a yaw target
+  hand_pd_hold the position servo reaches and holds a posture
+
+    python -m pql_tpu_torch.contact_lab [scenario ...] [--device=cpu]   (default: all)
+
+Each scene is one env (E = 1), as in the JAX lab, and prints the JAX lab's
+lines. The cube scenes step ``hand_model(n_fingers=0)`` under
+``box_ground_anchored_s`` with an extra wrench on the cube built from its
+pose inside the step; ``ant_stand`` runs the Ant's production contacts;
+the hand scenes the hand's own contact function with scripted actions (a
+torque-driven hand for the gaits, the position-driven AllegroHand for the
+servo). The Ant and hand scenes start from the JAX lab's initial states
+(``JAX_LAB_INIT``: what the JAX tasks' ``init_state`` draws from the lab's
+keys 0 and 1; the port's generators cannot draw JAX's numbers), so each
+scene is the JAX lab's scene.
+
+On a card each scene's control step is one captured CUDA graph
+(``GraphedStep``), replayed every step with its inputs (the control index,
+the action) copied into the graph; the hand's graphs are captured once per
+control mode and shared by its scenes. The trajectory stays on the device
+and is copied to the host once per scene, except in ``hand_goal``, whose
+controller reads the pose every step. Runs on the card unless
+``--device=cpu``. The exit code is 1 when a scene outside
+``KNOWN_REGRESSIONS`` fails.
+"""
+
+from __future__ import annotations
+
+import sys
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from pql_tpu_torch.cfg import require_card
+from pql_tpu_torch.envs.hand import CUBE_HALF, AllegroHand, hand_model
+from pql_tpu_torch.envs.rigid import Ant, GraphedStep
+from pql_tpu_torch.physics import scalar_algebra as sa
+from pql_tpu_torch.physics.contact import box_ground_anchored_s, derive_pair, point_eff_mass
+from pql_tpu_torch.physics.dynamics import physics_substeps
+from pql_tpu_torch.physics.spatial import quat_inv, quat_mul
+
+
+# The JAX lab's initial states (float32): Ant().init_state(PRNGKey(0)) and
+# AllegroHand().init_state(PRNGKey(k)) of the JAX package (qd and the contact
+# state are zeros but the Ant's qd). tests/test_torch_contact_lab.py holds
+# them against the JAX package.
+JAX_LAB_INIT = {
+    ("Ant", 0): dict(
+        q=[0.0, 0.0, 0.41999998688697815, 1.0, 0.0, 0.0, 0.0, 0.06846282631158829, 0.9364757537841797,
+           -0.05456438288092613, 0.9241451025009155, -0.061637308448553085, 1.0444029569625854,
+           0.053089119493961334, 0.9305080771446228],
+        qd=[-0.024424556642770767, -0.020356804132461548, 0.0020554421935230494, -0.003535501891747117,
+            -0.007619739975780249, -0.011785517446696758, -0.011482195928692818, 0.00297165778465569,
+            -0.013105358928442001, 0.021302025765180588, -0.0018957233987748623, 0.009640120901167393,
+            -0.01301100105047226, -0.0074869380332529545]),
+    ("AllegroHand", 0): dict(
+        q=[0.06846282631158829, 0.13647574186325073, 0.1454356163740158, 0.12414512783288956,
+           -0.061637308448553085, 0.24440300464630127, 0.25308912992477417, 0.13050809502601624,
+           0.09034126251935959, 0.105862095952034, 0.11974211037158966, 0.2106286585330963,
+           -0.07511057704687119, 0.21891240775585175, 0.2918981611728668, 0.23864543437957764, 0.0, 0.0,
+           0.03700000047683716, 0.1304083913564682, 0.9877751469612122, -0.04181277006864548,
+           -0.0744682028889656]),
+    ("AllegroHand", 1): dict(
+        q=[0.04052305221557617, 0.14696693420410156, 0.26357290148735046, 0.1341882348060608,
+           -0.0947304517030716, 0.2845218777656555, 0.23889468610286713, 0.17832212150096893,
+           0.04066288471221924, 0.17522136867046356, 0.2683006823062897, 0.154427170753479,
+           -0.05859270319342613, 0.20206299424171448, 0.10747885704040527, 0.26016491651535034, 0.0, 0.0,
+           0.03700000047683716, -0.23353031277656555, -0.7360823750495911, 0.625966489315033,
+           0.1086844950914383]),
+}
+
+
+def initial_state(task, name: str, key: int, device) -> dict:
+    """{q, qd, contact} ([1, n]) of a scene's task (``name`` its kind in
+    JAX_LAB_INIT) at the JAX lab's ``key``."""
+    dev = torch.device(device)
+    init = JAX_LAB_INIT[(name, key)]
+    q = torch.tensor(init["q"], dtype=torch.float32, device=dev)[None]
+    qd = torch.tensor(init.get("qd", [0.0] * task.model.nv), dtype=torch.float32, device=dev)[None]
+    return {"q": q, "qd": qd, "contact": torch.zeros(1, 4 * task.n_contact_pairs, device=dev)}
+
+
+@dataclass
+class SceneResult:
+    """A scene's verdict, its printed numbers, the captured control steps it
+    replayed (none on the CPU) and how many control steps it took."""
+
+    ok: bool
+    numbers: dict
+    steps: list = field(default_factory=list)
+    control_steps: int = 0
+
+
+class ControlStep:
+    """One control step of a scene, ``fn(state, *inputs) -> next state``
+    (a dict of [1, n] tensors): eager on the CPU; on a card one captured CUDA
+    graph (``GraphedStep``), built at the first call and replayed after."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.graphed: GraphedStep | None = None
+
+    def _as_task_step(self, state, *inputs):
+        nxt = self.fn(state, *inputs)
+        q = nxt["q"]
+        return nxt, q[:, 0], ~torch.isfinite(q).all(-1), {}
+
+    def __call__(self, state, *inputs):
+        if inputs[0].device.type != "cuda":
+            return self.fn(state, *inputs)
+        if self.graphed is None:
+            self.graphed = GraphedStep(self._as_task_step, state, *inputs)
+        return self.graphed(state, *inputs)[0]
+
+    def used(self) -> list:
+        return [self.graphed] if self.graphed is not None else []
+
+
+def _quat_angle(q1, q2) -> float:
+    qd = quat_mul(torch.as_tensor(np.asarray(q1)), quat_inv(torch.as_tensor(np.asarray(q2))))
+    return float(2.0 * torch.arcsin(torch.clamp(torch.linalg.vector_norm(qd[1:]), 0.0, 1.0)))
+
+
+def cube_only_model():
+    """Just the free cube from the hand scene (n_fingers=0)."""
+    return hand_model(n_fingers=0)
+
+
+def run_cube(model, wrench_fn, seconds=1.0, z0=None, quat0=None, device="cuda"):
+    """Roll a cube-only scene forward under the ANCHORED contact model.
+    wrench_fn(t, pos, R) -> extra 6-list world wrench on the cube ([n; f]
+    about the world origin; pos a v3 and R an m33 of [1] columns, t the
+    control index as a [1] tensor). Returns (qs [n_ctrl, nq], qds [n_ctrl,
+    nv], the control step) with the trajectories as numpy."""
+    substeps = max(int(round((1.0 / 60.0) / model.dt)), 1)
+    n_ctrl = int(seconds * 60)
+    q0 = torch.tensor(np.asarray(model.neutral_q(), np.float32))
+    q0[2] = CUBE_HALF if z0 is None else z0
+    if quat0 is not None:
+        q0[3:7] = torch.tensor(np.asarray(quat0, np.float32))
+    dev = torch.device(device)
+    state = {"q": q0[None].to(dev), "qd": torch.zeros(1, model.nv, device=dev),
+             "contact": torch.zeros(1, 32, device=dev)}
+    action = torch.zeros(1, max(model.nu, 1), device=dev)
+    pp = derive_pair(model, point_eff_mass(model, 0, (CUBE_HALF, CUBE_HALF, CUBE_HALF)), n_share=4)
+    half = [CUBE_HALF] * 3
+
+    def ctrl_step(st, t):
+        def contact_fn(m, R_wb, p_wb, v, cs):
+            cs_new = list(cs)
+            f, _ = box_ground_anchored_s(m, R_wb, p_wb, v, 0, half, cs, cs_new, 0, pp)
+            extra = wrench_fn(t, p_wb[0], R_wb[0])
+            f[0] = [sa.sadd(f[0][k], extra[k]) for k in range(6)]
+            return f, cs_new
+
+        q, qd, cs = physics_substeps(model, st["q"], st["qd"], action, substeps, contact_fn=contact_fn,
+                                     contact_state=st["contact"])
+        return {"q": q, "qd": qd, "contact": cs}
+
+    step = ControlStep(ctrl_step)
+    ts = torch.arange(n_ctrl, dtype=torch.float32, device=dev)
+    qs, qds = [], []
+    for t in range(n_ctrl):
+        state = step(state, ts[t : t + 1])
+        qs.append(state["q"][0])
+        qds.append(state["qd"][0])
+    return torch.stack(qs).cpu().numpy(), torch.stack(qds).cpu().numpy(), step
+
+
+def scenario_cube_rest(device="cuda"):
+    m = cube_only_model()
+    qs, qds, step = run_cube(m, lambda t, p, R: [0.0] * 6, seconds=1.0, device=device)
+    drift = float(np.linalg.norm(qs[-1][:2]))
+    ang = _quat_angle(qs[-1][3:7], qs[0][3:7])
+    jit = float(np.sqrt(np.mean(qds[30:] ** 2)))
+    print(f"cube_rest   : xy drift {drift*1000:7.2f} mm | quat drift {np.degrees(ang):6.2f} deg | qd rms {jit:.4f}")
+    ok = drift < 0.005 and jit < 0.05
+    print(f"cube_rest   : {'PASS' if ok else 'FAIL'} (want drift<5mm, qd rms<0.05)")
+    return SceneResult(ok, dict(xy_drift_mm=drift * 1000, quat_drift_deg=float(np.degrees(ang)), qd_rms=jit),
+                       step.used(), len(qs))
+
+
+def scenario_cube_settle(device="cuda"):
+    """Drop from 5mm + drop tilted 3 deg: both must come to rest (the
+    tilted case is the rocking mode that blew up the old fixed-gain
+    model: corner contacts have ~m/5 rotational effective mass)."""
+    m = cube_only_model()
+    ok, numbers, steps, n = True, {}, [], 0
+    for name, z0, tilt in (("drop 5mm", CUBE_HALF + 0.005, 0.0), ("tilt 3deg", CUBE_HALF + 0.002, 0.03)):
+        quat0 = None
+        if tilt:
+            quat0 = [np.cos(tilt / 2), np.sin(tilt / 2), 0.0, 0.0]
+        qs, qds, step = run_cube(m, lambda t, p, R: [0.0] * 6, seconds=1.0, z0=z0, quat0=quat0, device=device)
+        jit = float(np.sqrt(np.mean(qds[30:] ** 2)))
+        zmax = float(qs[30:, 2].max())
+        good = jit < 0.05 and zmax < CUBE_HALF + 0.01
+        ok = ok and good
+        numbers[name] = dict(qd_rms=jit, max_z=zmax, ok=good)
+        steps, n = steps + step.used(), n + len(qs)
+        print(f"cube_settle : {name}: qd rms {jit:.4f} | max z {zmax:.4f} {'PASS' if good else 'FAIL'}")
+    print(f"cube_settle : {'PASS' if ok else 'FAIL'}")
+    return SceneResult(ok, numbers, steps, n)
+
+
+def scenario_cube_push(device="cuda"):
+    m = cube_only_model()
+    mg = float(m.mass[0]) * 9.81
+    ok, numbers, steps, n = True, {}, [], 0
+    for alpha, should_slide in ((0.4, False), (0.8, False), (1.8, True)):
+        F = alpha * mg
+
+        def wf(t, p, R, F=F):
+            # horizontal force F x̂ at the cube CENTER: n = p x f
+            return [0.0, F * p[2], -F * p[1], F, 0.0, 0.0]
+
+        qs, _, step = run_cube(m, wf, seconds=1.0, device=device)
+        disp = float(np.linalg.norm(qs[-1][:2]))
+        slid = disp > 0.02
+        good = slid == should_slide
+        ok = ok and good
+        numbers[f"{alpha:.1f}*mg"] = dict(disp_mm=disp * 1000, slides=slid, ok=good)
+        steps, n = steps + step.used(), n + len(qs)
+        print(
+            f"cube_push   : {alpha:.1f}*mg -> {disp*1000:8.2f} mm in 1s "
+            f"({'slides' if slid else 'holds'}) {'PASS' if good else 'FAIL'}"
+        )
+    print(f"cube_push   : {'PASS' if ok else 'FAIL'} (mu={m.friction_mu}: <=0.8mg holds, 1.8mg slides)")
+    return SceneResult(ok, numbers, steps, n)
+
+
+def scenario_cube_twist(device="cuda"):
+    m = cube_only_model()
+    mg = float(m.mass[0]) * 9.81
+    # torsional resistance from 4 corners at lever ~CUBE_HALF
+    tau_cap = m.friction_mu * mg * CUBE_HALF
+    ok, numbers, steps, n = True, {}, [], 0
+    for beta, should_spin in ((0.5, False), (3.0, True)):
+        tau = beta * tau_cap
+
+        def wf(t, p, R, tau=tau):
+            return [0.0, 0.0, tau, 0.0, 0.0, 0.0]
+
+        qs, _, step = run_cube(m, wf, seconds=1.0, device=device)
+        ang = _quat_angle(qs[-1][3:7], qs[0][3:7])
+        spun = ang > np.radians(20)
+        good = spun == should_spin
+        ok = ok and good
+        numbers[f"{beta:.1f}*cap"] = dict(rot_deg=float(np.degrees(ang)), spins=bool(spun), ok=bool(good))
+        steps, n = steps + step.used(), n + len(qs)
+        print(
+            f"cube_twist  : {beta:.1f}*cap -> {np.degrees(ang):7.2f} deg in 1s "
+            f"({'spins' if spun else 'holds'}) {'PASS' if good else 'FAIL'}"
+        )
+    print(f"cube_twist  : {'PASS' if ok else 'FAIL'}")
+    return SceneResult(bool(ok), numbers, steps, n)
+
+
+def scenario_cube_tip(device="cuda"):
+    m = cube_only_model()
+    mg = float(m.mass[0]) * 9.81
+    # push at the top edge: tipping needs F * 2h > mg * h -> F > mg/2,
+    # and the bottom edge must STICK (friction >= F) for a clean tip.
+    # Release the force once the tip is committed (~35 deg): the cube's
+    # inertia is tiny, so a force held past the pivot point correctly
+    # launches a cartwheel (that's dynamics, not a contact failure).
+    F = 0.7 * mg
+    cos_commit = float(np.cos(np.radians(35.0)))
+
+    def wf(t, p, R):
+        # rotation about y so far: R[2][2] = cos(theta)
+        F_t = torch.where(R[2][2] < cos_commit, 0.0, F)
+        # n = pt x f for pt = (px, py, pz+h), f = (F_t, 0, 0)
+        return [0.0, (p[2] + CUBE_HALF) * F_t, -p[1] * F_t, F_t, 0.0, 0.0]
+
+    qs, _, step = run_cube(m, wf, seconds=1.2, device=device)
+    ang = np.degrees(_quat_angle(qs[-1][3:7], qs[0][3:7]))
+    disp = float(np.linalg.norm(qs[-1][:2]))
+    rolled = 45 < ang < 135  # settled on the adjacent face
+    ok = rolled and disp < 4 * CUBE_HALF
+    print(
+        f"cube_tip    : rot {ang:6.1f} deg | slide {disp*1000:7.1f} mm "
+        f"-> {'tips' if rolled else 'no tip'} {'PASS' if ok else 'FAIL'} (want 45<rot<135 deg, slide<{4*CUBE_HALF*1000:.0f}mm)"
+    )
+    return SceneResult(bool(ok), dict(rot_deg=float(ang), slide_mm=disp * 1000), step.used(), len(qs))
+
+
+def scenario_ant_stand(device="cuda"):
+    """Ant, zero actions, on the PRODUCTION contact path (anchored
+    stateful contacts: what the Ant task integrates). The random init
+    makes the feet skate during the landing transient; the pass criteria
+    are about the settled state: steady height and TOTAL stick (no creep)
+    in the final second, the static-friction property the viscous model
+    lacked."""
+    task = Ant()
+    dev = torch.device(device)
+    c = task._on(dev)
+    st = initial_state(task, "Ant", 0, dev)
+    action = torch.zeros(1, task.action_dim, device=dev)
+
+    def ctrl_step(st, action):
+        q, qd, cs = task._substeps(st, action, c)
+        return {"q": q, "qd": qd, "contact": cs}
+
+    step = ControlStep(ctrl_step)
+    xy = []
+    for _ in range(240):
+        st = step(st, action)
+        xy.append(st["q"][0, :3])
+    xy = torch.stack(xy).cpu().numpy()
+    h_std = float(xy[120:, 2].std())
+    late_drift = float(np.linalg.norm(xy[-1, :2] - xy[180, :2]))
+    print(
+        f"ant_stand   : height {xy[-1, 2]:.3f} (std {h_std * 1000:.1f} mm) | "
+        f"final-second creep {late_drift * 1000:.2f} mm"
+    )
+    ok = h_std < 0.01 and late_drift < 0.005 and xy[-1, 2] > 0.3
+    print(f"ant_stand   : {'PASS' if ok else 'FAIL'} (settled height >0.3, no creep)")
+    return SceneResult(bool(ok), dict(height=float(xy[-1, 2]), height_std_mm=h_std * 1000,
+                                      final_second_creep_mm=late_drift * 1000), step.used(), len(xy))
+
+
+class _TorqueHand(AllegroHand):
+    """AllegroHand with torque-mode actuation: the scripted gait
+    controllers below were tuned as torque programs; the RL env default
+    is position PD (IGE parity) on the SAME contact physics."""
+
+    control_mode = "torque"
+
+
+_HAND_STEPS: dict = {}
+
+
+def _hand(cls, device):
+    """(task, its control step) for a hand class on a device, made once and
+    shared by the scenes: all substeps of ``physics_substeps`` with the
+    hand's contact function, the action as the step's input."""
+    dev = torch.device(device)
+    key = (cls, dev)
+    if key not in _HAND_STEPS:
+        task = cls()
+        c = task._on(dev)
+
+        def ctrl_step(st, action):
+            q, qd, cs = physics_substeps(task.model, st["q"], st["qd"], action, task.substeps,
+                                         contact_fn=task._contact_fn(c), contact_state=st["contact"])
+            return {"q": q, "qd": qd, "contact": cs}
+
+        _HAND_STEPS[key] = (task, ControlStep(ctrl_step))
+    return _HAND_STEPS[key]
+
+
+def scenario_hand_pinch(device="cuda"):
+    """Scripted grasp-and-twist on the AllegroHand model (torque
+    actuation: see _TorqueHand).
+
+    Phase A (0-0.5s): curl all fingers onto the cube (constant curl
+    torque), abduction centered. Phase B (0.5-2.0s): hold the squeeze and
+    drive every abduction joint through its range in the same rotational
+    sense: with working friction the fingertips drag the cube's yaw
+    along. Report cube yaw swept vs abduction sweep."""
+    task, step = _hand(_TorqueHand, device)
+    state = initial_state(task, "AllegroHand", 1, device)
+    state["q"][:, task.cube_q + 3 : task.cube_q + 7] = torch.tensor([0.0, 0.0, 0.0, 1.0])
+    n_dof = task.n_dof
+    is_abduct = np.arange(n_dof) % 4 == 0
+
+    def action_at(t):
+        # curl torque to squeeze (negative curls press inward/down; sign
+        # found empirically: flip if tips rise away from the cube)
+        a = np.zeros(task.action_dim, np.float32)
+        curl = min(t / 30.0, 1.0)
+        a[~is_abduct] = 0.55 * curl
+        if t >= 30:
+            sweep = min((t - 30) / 60.0, 1.0)
+            a[is_abduct] = 0.9 * np.sin(np.pi * sweep)
+        return a
+
+    actions = torch.tensor(np.stack([action_at(t) for t in range(150)]), device=torch.device(device))
+    traj = []
+    for t in range(150):
+        state = step(state, actions[t : t + 1])
+        traj.append(state["q"][0])
+    traj = torch.stack(traj).cpu().numpy()
+    cq = task.cube_q
+    yaw0 = traj[30, cq + 3 : cq + 7]
+    quat_end, pos_end = traj[-1, cq + 3 : cq + 7], traj[-1, cq : cq + 3]
+    ang = _quat_angle(quat_end, yaw0)
+    abd = traj[-1, :n_dof][is_abduct[:n_dof]]
+    print(
+        f"hand_pinch  : cube rot {np.degrees(ang):6.1f} deg | cube pos {pos_end.round(3)} | "
+        f"abduction q {abd.round(2)}"
+    )
+    ok = np.degrees(ang) > 25 and pos_end[2] > -0.01 and np.linalg.norm(pos_end[:2]) < 0.15
+    print(f"hand_pinch  : {'PASS' if ok else 'FAIL'} (want cube dragged >25 deg without escape)")
+    return SceneResult(bool(ok), dict(cube_rot_deg=float(np.degrees(ang)), cube_pos=pos_end.tolist(),
+                                      abduction_q=abd.tolist()), step.used(), len(traj))
+
+
+def scenario_hand_pd_hold(device="cuda"):
+    """Position-mode servo sanity (the RL env default, IGE DOF_MODE_POS
+    analog): command a target posture and verify every actuated joint
+    converges to it and HOLDS against gravity, the learnability property
+    torque control lacks."""
+    task, step = _hand(AllegroHand, device)
+    assert task.model.control_mode == "position"
+    m = task.model
+    state = initial_state(task, "AllegroHand", 0, device)
+    state["qd"] = state["qd"] * 0
+    n_dof = task.n_dof
+    # cube far away so fingers move freely
+    state["q"][:, task.cube_q : task.cube_q + 3] = torch.tensor([0.5, 0.5, CUBE_HALF])
+
+    # command: abduction +60% of range, curl to 0.9 rad (map through the
+    # model's actual limits)
+    a = np.zeros(task.action_dim, np.float32)
+    is_abduct = np.arange(n_dof) % 4 == 0
+    lo, hi = float(m.limit_lo[1]), float(m.limit_hi[1])
+    mid, halfr = 0.5 * (lo + hi), 0.5 * (hi - lo)
+    a[is_abduct] = 0.6
+    a[~is_abduct] = (0.9 - mid) / halfr
+    action = torch.tensor(a, device=torch.device(device))[None]
+
+    for _ in range(90):  # 1.5 s
+        state = step(state, action)
+    dof = state["q"][0, :n_dof].cpu().numpy()
+    err_abd = np.abs(dof[is_abduct] - 0.6 * 0.47).max()
+    err_curl = np.abs(dof[~is_abduct] - 0.9).max()
+    print(
+        f"hand_pd_hold: max abduction err {np.degrees(err_abd):5.2f} deg | "
+        f"max curl err {np.degrees(err_curl):5.2f} deg"
+    )
+    ok = err_abd < 0.06 and err_curl < 0.06
+    print(f"hand_pd_hold: {'PASS' if ok else 'FAIL'} (servo reaches and holds targets)")
+    return SceneResult(bool(ok), dict(max_abduction_err_deg=float(np.degrees(err_abd)),
+                                      max_curl_err_deg=float(np.degrees(err_curl))), step.used(), 90)
+
+
+def scenario_hand_goal(device="cuda"):
+    """Closed-loop scripted GOAL-REACHING on the AllegroHand env physics:
+    drive the cube to a yaw-rotation target by finger gaiting (grasp,
+    sweep the abduction joints against the target error, lift off,
+    re-center, repeat), then fully release so the cube settles flat
+    (the squeeze-induced tilt is the residual rot_dist). PASS =
+    rot_dist < success_tolerance (0.1 rad) with the cube held: evidence
+    the anchored-contact sim supports the reorientation strategy the RL
+    flagship must learn (thresholds per IsaacGymEnvs AllegroHand)."""
+    task, step = _hand(_TorqueHand, device)
+    dev = torch.device(device)
+    state = initial_state(task, "AllegroHand", 1, device)
+    cq, n_dof = task.cube_q, task.n_dof
+    is_abduct = np.arange(n_dof) % 4 == 0
+    state["q"][:, cq + 3 : cq + 7] = torch.tensor([1.0, 0.0, 0.0, 0.0])
+    # deterministic start: abduction centered, light curl
+    state["q"][:, :n_dof] = torch.tensor(np.where(is_abduct, 0.0, 0.2).astype(np.float32))
+    state["qd"] = state["qd"] * 0
+    theta_t = np.radians(50.0)
+    target = torch.tensor([np.cos(theta_t / 2), 0.0, 0.0, np.sin(theta_t / 2)], dtype=torch.float32)
+
+    def yaw_err(q):
+        d = quat_mul(target, quat_inv(torch.as_tensor(q[cq + 3 : cq + 7])))
+        return float(2.0 * np.arctan2(float(d[3]), float(d[0])))
+
+    def dist_of(q):
+        return _quat_angle(q[cq + 3 : cq + 7], target)
+
+    min_d, t_success = np.inf, None
+    CYC = 80  # grasp 12 | twist 35 | lift 12 | recenter 21
+    hold_err, holding = 0.0, False
+    q = state["q"][0].cpu().numpy()
+    steps = 0
+    for t in range(10 * CYC):
+        phase = t % CYC
+        err = yaw_err(q)
+        abd = q[:n_dof][is_abduct]
+        a = np.zeros(task.action_dim, np.float32)
+        if abs(err) < 0.06 or holding:
+            # yaw solved: release fully and let the cube settle flat
+            holding = abs(err) < 0.25
+            a[~is_abduct] = -0.45
+            a[is_abduct] = np.clip(-6.0 * abd, -1, 1)
+        else:
+            if phase == 0:
+                hold_err = err  # freeze the sweep direction per cycle
+            if phase < 12:  # grasp: curl on, abduction held centered
+                a[~is_abduct] = 0.55
+                a[is_abduct] = np.clip(-6.0 * abd, -1, 1)
+            elif phase < 47:  # twist: hold squeeze + sweep (+abd = -yaw)
+                a[~is_abduct] = 0.55
+                if abs(err) > 0.07:
+                    drive = float(np.clip(-2.5 * hold_err, -1, 1))
+                    a[is_abduct] = drive * min((phase - 12) / 6.0, 1.0)
+            elif phase < 59:  # lift: uncurl, tips off the cube
+                a[~is_abduct] = -0.45
+            else:  # recenter abduction with tips lifted
+                a[~is_abduct] = -0.45
+                a[is_abduct] = np.clip(-6.0 * abd, -1, 1)
+        state = step(state, torch.tensor(a, device=dev)[None])
+        steps += 1
+        q = state["q"][0].cpu().numpy()  # the controller reads the pose every step
+        d = dist_of(q)
+        min_d = min(min_d, d)
+        if d < task.success_tolerance:
+            t_success = t + 1
+            break
+    pos = q[cq : cq + 3]
+    held = pos[2] > 0.0 and np.linalg.norm(pos[:2]) < task.fall_dist
+    print(
+        f"hand_goal   : min rot_dist {np.degrees(min_d):6.2f} deg "
+        f"(tol {np.degrees(task.success_tolerance):.1f}) "
+        f"{'at ctrl step ' + str(t_success) if t_success else 'never below tol'} | "
+        f"cube pos {pos.round(3)}"
+    )
+    ok = min_d < task.success_tolerance and held
+    print(f"hand_goal   : {'PASS' if ok else 'FAIL'} (want rot_dist < tolerance, cube held)")
+    return SceneResult(bool(ok), dict(min_rot_dist_deg=float(np.degrees(min_d)), success_step=t_success,
+                                      cube_pos=pos.tolist()), step.used(), steps)
+
+
+SCENARIOS = {
+    "cube_rest": scenario_cube_rest,
+    "cube_settle": scenario_cube_settle,
+    "cube_push": scenario_cube_push,
+    "cube_twist": scenario_cube_twist,
+    "cube_tip": scenario_cube_tip,
+    "ant_stand": scenario_ant_stand,
+    "hand_pinch": scenario_hand_pinch,
+    "hand_goal": scenario_hand_goal,
+    "hand_pd_hold": scenario_hand_pd_hold,
+}
+
+
+# Known regressions: scenarios whose pass bar is currently not met for a
+# DOCUMENTED reason (still run + reported, excluded from the exit gate).
+KNOWN_REGRESSIONS = {
+    "hand_goal": (
+        "the round-5 chatter fix (finger-cube kdt x0.25 — the viscous slope "
+        "was rotationally unstable and saturated the cube angular-velocity "
+        "obs at 10-50 rad/s in every flagship rollout) exposed FRICTION "
+        "SELF-LOCKING in this controller's disengage phase: after the "
+        "twist, the four fingers wedge the cube like a 4-jaw chuck "
+        "(mu=1.2 > the ~45deg self-locking friction angle; cube held "
+        "lifted at z=0.042, abduction jammed past its limit against "
+        ">0.75 N*m of restoring torque, wiggle-assist does not break "
+        "it). The old chattery contacts escaped the wedge by vibration. "
+        "Real physics, not a bug — the grasp-and-drag primitive still "
+        "passes (hand_pinch: 45 deg/sweep, was 35); the gait needs a "
+        "wedge-aware release (or the bowl palm) to re-certify"
+    ),
+}
+
+
+def gate(results: dict) -> tuple[list[str], list[str]]:
+    """(failing scenes that gate, failing scenes excused by KNOWN_REGRESSIONS)
+    of ``{name: passed}``."""
+    bad = [n for n, r in results.items() if not r and n not in KNOWN_REGRESSIONS]
+    known = [n for n, r in results.items() if not r and n in KNOWN_REGRESSIONS]
+    return bad, known
+
+
+def main(argv: list[str]) -> int:
+    device, names = "cuda", []
+    for arg in argv:
+        if arg.startswith("--device="):
+            device = arg.split("=", 1)[1]
+        else:
+            names.append(arg)
+    unknown = [n for n in names if n not in SCENARIOS]
+    if unknown:
+        raise SystemExit(f"unknown scenario(s) {unknown}; known: {list(SCENARIOS)}")
+    require_card(device)
+    results = {}
+    for n in names or list(SCENARIOS):
+        results[n] = SCENARIOS[n](device).ok
+        print()
+    bad, known = gate(results)
+    for n in known:
+        print(f"KNOWN-REGRESSION {n}: {KNOWN_REGRESSIONS[n]}")
+    print("ALL PASS" if not bad else f"FAILING: {', '.join(bad)}")
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

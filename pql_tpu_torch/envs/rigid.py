@@ -24,6 +24,8 @@ task on the engine, the hand's (pql_tpu_torch.envs.hand) included.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from dataclasses import dataclass
 
@@ -34,6 +36,23 @@ from pql_tpu_torch.physics import FREE, Geom, HINGE, RigidBodyModel
 from pql_tpu_torch.physics.contact import SpherePairs, derive_pair, ground_anchored_v, ground_pairs, point_eff_mass
 from pql_tpu_torch.physics.dynamics import physics_substeps
 from pql_tpu_torch.physics.spatial import quat_rotate
+
+
+@contextlib.contextmanager
+def collected_gc():
+    """Collect garbage now and none in the block (a graph capture): a dead
+    reference cycle that holds a CUDA graph, collected while a stream
+    captures, destroys that graph mid-capture and invalidates the capture
+    ("operation not permitted when stream is capturing"); torch.cuda.graph
+    collects nothing first."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class GraphedStep:
@@ -60,7 +79,7 @@ class GraphedStep:
             torch.cuda.synchronize(dev)
             t1 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)  # instantiated below, to time it apart
-            with torch.cuda.graph(self.graph):
+            with collected_gc(), torch.cuda.graph(self.graph):
                 self.out = fn(self.state_in, *self.inputs)
             t2 = time.perf_counter()
             self.graph.instantiate()

@@ -1,11 +1,13 @@
 """The rigid-body engine, ported (pql_tpu/physics): a reduced-coordinate
-articulated dynamics engine (CRBA + RNEA + anchored penalty contacts) on
-per-env [E] tensors. The JAX package's ``ground_contacts`` and
-``sphere_box_contacts`` (legacy viscous contacts) are not ported yet.
+articulated dynamics engine (CRBA + RNEA + penalty contacts) on per-env [E]
+tensors: the anchored contact groups of the tasks, their per-pair loops,
+and the legacy viscous contacts (``ground_contacts``,
+``sphere_box_contacts``) of the JAX package.
 """
 
 from pql_tpu_torch.physics.model import RigidBodyModel, Geom, FREE, HINGE
 from pql_tpu_torch.physics.dynamics import fd_step, fwd_kinematics, mass_matrix, body_velocities
+from pql_tpu_torch.physics.contact import ground_contacts, sphere_box_contacts
 
 __all__ = [
     "RigidBodyModel",
@@ -16,4 +18,6 @@ __all__ = [
     "fwd_kinematics",
     "mass_matrix",
     "body_velocities",
+    "ground_contacts",
+    "sphere_box_contacts",
 ]

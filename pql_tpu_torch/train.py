@@ -87,7 +87,7 @@ import torch
 from pql_tpu_torch.algos import get_algo
 from pql_tpu_torch.algos.base import set_precision
 from pql_tpu_torch.algos.pql import PQL
-from pql_tpu_torch.cfg import parse_cli, platform_device, to_dict
+from pql_tpu_torch.cfg import entry_device, parse_cli, require_card, to_dict
 from pql_tpu_torch.envs import make_eval_env
 from pql_tpu_torch.parallel import distributed
 from pql_tpu_torch.utils.checkpoint import (
@@ -97,11 +97,9 @@ from pql_tpu_torch.utils.checkpoint import (
     save_checkpoint,
     save_model_snapshot,
 )
-from pql_tpu_torch.utils.evaluator import Evaluator
+from pql_tpu_torch.utils.evaluator import EVAL_SEED_OFFSET, Evaluator
 from pql_tpu_torch.utils.logging import RunLogger
 from pql_tpu_torch.utils.ratio_control import RatioController
-
-EVAL_SEED_OFFSET = 1  # the eval draws' generator: seed + 1, apart from the loop's
 
 
 class _Every:
@@ -353,10 +351,7 @@ def main(argv: list[str]) -> None:
         else:
             overrides.append(arg)
     cfg = parse_cli(overrides)
-    by_platform = platform_device(cfg.platform)
-    if by_platform is not None and device is not None and torch.device(device).type != by_platform:
-        raise SystemExit(f"platform={cfg.platform} contradicts --device={device}")
-    device = device or by_platform or "cuda"
+    device = entry_device(cfg, device)
     get_algo(cfg.algo.name)  # an unported algo.name fails before the run directory is made
     world = distributed.settings(cfg)[1] or 1
     if world > 1 and cfg.algo.name != "PQL":
@@ -364,8 +359,7 @@ def main(argv: list[str]) -> None:
                          f"ranks, and {world} ranks would train {world} unrelated copies")
     owned = not torch.distributed.is_initialized()  # a group made here ends here
     joined = distributed.initialize(cfg, device)  # before anything else touches the card
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device found (pass --device=cpu to run on the CPU)")
+    require_card(device)
     if joined and torch.device(device).type == "cuda":
         device = f"cuda:{torch.cuda.current_device()}"  # this rank's card
     set_precision(cfg)

@@ -27,6 +27,8 @@ import torch
 from pql_tpu_torch.envs.base import VecEnv
 from pql_tpu_torch.utils.trackers import Tracker
 
+EVAL_SEED_OFFSET = 1  # the eval draws' generator: seed + 1, apart from the loop's
+
 
 class Evaluator:
     def __init__(self, cfg, env: VecEnv, actor_apply: Callable, device: str | torch.device = "cuda"):

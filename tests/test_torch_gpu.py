@@ -10,6 +10,7 @@ installed. On the machine with the card:
 
 import copy
 
+import numpy as np
 import pytest
 import torch
 from hypothesis import HealthCheck, given, settings
@@ -34,6 +35,7 @@ from chip_smoke import (
     dist_one_rank,
     host_ring_check,
     c51_logit_scale,
+    legacy_contact_check,
     envs_beyond_tol,
     eq_layer_check,
     eq_reference,
@@ -733,3 +735,39 @@ def test_one_rank_nccl_group_is_the_one_gpu_path(cuda):
             "algo.warm_up=4")
     out = dist_one_rank(cuda, "", argv, 2)
     assert out["launches"]["c51_td_target"] == 16 and out["bitwise_equal_without_group"]
+
+
+@pytest.mark.gpu
+def test_legacy_contacts_on_card(cuda):
+    """chip_smoke's phase 42: the legacy groups in both forms and the per-pair
+    loops card vs CPU on states reaching every branch; a graphed Ant step with
+    the legacy contacts bitwise its eager step."""
+    out = legacy_contact_check(cuda, "test")
+    assert out["ant_legacy_control_step"]["graphed_equals_eager_bitwise"]
+    assert all(c["kernel_nodes"] > 0 for r in (out["Ant"], out["AllegroHand"]) for c in r["form_costs"].values())
+
+
+@pytest.mark.gpu
+def test_lab_cube_step_graphed_equals_eager(cuda, monkeypatch):
+    """The contact lab's cube step, captured (``ControlStep`` on the card), is
+    bitwise its eager step over 10 control steps of the tipping push (its
+    wrench switches inside the graph on the cube's pose), and within the
+    hand's substep tolerances of the CPU."""
+    from pql_tpu_torch import contact_lab as lab
+
+    m = lab.cube_only_model()
+    F = 0.7 * float(m.mass[0]) * 9.81
+
+    def wf(t, p, R):
+        F_t = torch.where(R[2][2] < 0.8, 0.0, F)
+        return [0.0, (p[2] + lab.CUBE_HALF) * F_t, -p[1] * F_t, F_t, 0.0, 0.0]
+
+    graphed_q, graphed_qd, step = lab.run_cube(m, wf, seconds=10 / 60.0, device=cuda)
+    assert step.graphed is not None
+    # the same step function, called eagerly on the card
+    monkeypatch.setattr(lab.ControlStep, "__call__", lambda self, state, *inputs: self.fn(state, *inputs))
+    eager_q, eager_qd, _ = lab.run_cube(m, wf, seconds=10 / 60.0, device=cuda)
+    assert (graphed_q == eager_q).all() and (graphed_qd == eager_qd).all()
+    cpu_q, cpu_qd, _ = lab.run_cube(m, wf, seconds=10 / 60.0, device="cpu")
+    np.testing.assert_allclose(graphed_q, cpu_q, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(graphed_qd, cpu_qd, rtol=1e-5, atol=1e-4)
