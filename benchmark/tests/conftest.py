@@ -1,0 +1,11 @@
+"""The benchmark's tests run from the repo root: ``python -m pytest benchmark/tests``."""
+
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BENCH = os.path.dirname(HERE)
+ROOT = os.path.dirname(BENCH)
+for path in (ROOT, BENCH):
+    if path not in sys.path:
+        sys.path.insert(0, path)
