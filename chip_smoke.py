@@ -239,6 +239,8 @@ import time
 
 import numpy as np
 
+from pql_tpu_torch.envs.rigid import graph_kernel_nodes
+
 MAIN_WARM_ITERS = 5  # untimed iterations of each route first
 MAIN_BLOCKS = 4  # timed blocks, alternating kernel and plain routes
 MAIN_BLOCK_ITERS = 10  # iterations per timed block
@@ -813,32 +815,6 @@ def device_records(prof) -> tuple[int, float]:
     return n, us
 
 
-def graph_kernel_nodes(graph) -> tuple[int, int]:
-    """(kernel nodes, all nodes) of a captured ``torch.cuda.CUDAGraph`` made
-    with ``keep_graph=True``, counted by libcuda (cuGraphGetNodes,
-    cuGraphNodeGetType): the kernel launches of one replay. A profile of an
-    eager step of ~100k launches may lose kernel records (62,491 of 99,948
-    in one run), a count of the graph's nodes does not."""
-    import ctypes
-
-    cuda = ctypes.CDLL("libcuda.so.1")
-    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
-    cuda.cuGraphGetNodes.restype = ctypes.c_int
-    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-    cuda.cuGraphNodeGetType.restype = ctypes.c_int
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes (count)")
-    nodes = (ctypes.c_void_p * n.value)()
-    check(cuda.cuGraphGetNodes(handle, ctypes.cast(nodes, ctypes.c_void_p), ctypes.byref(n)) == 0,
-          "cuGraphGetNodes (nodes)")
-    kind, kernels = ctypes.c_int(), 0
-    for node in nodes:
-        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0, "cuGraphNodeGetType")
-        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
-    return kernels, n.value
-
-
 def step_tol(task) -> dict:
     """Per state field (and reward, flags): (rtol, atol), atol a float or a
     per-column tensor; the rigid tasks' STEP_TOL, FrankaCubeStack's or the hand's."""
@@ -1065,7 +1041,7 @@ def rigid_main_path(dev, smi: str, argv: list[str], warm_iters: int, blocks: int
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
         graph.graph.replay()
         torch.cuda.synchronize()
-    graph_kernels, _ = graph_kernel_nodes(graph.graph)
+    graph_kernels = graph.kernels
     replay_records, replay_us = device_records(gprof)
     check(replay_records >= 0.99 * graph_kernels,
           f"the profiler does not trace the {label} graph's kernels: no sim/learner split")
@@ -1559,7 +1535,7 @@ def baseline_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
             graph.graph.replay()
             torch.cuda.synchronize()
-        graph_kernels, _ = graph_kernel_nodes(graph.graph)
+        graph_kernels = graph.kernels
         replay_records, replay_us = device_records(gprof)
         check(replay_records >= 0.99 * graph_kernels,
               f"the profiler does not trace the {label} graph's kernels: no sim/learner split")
@@ -1931,7 +1907,7 @@ def onpolicy_run(dev, smi: str, argv, warm_iters: int, blocks: int, block_iters:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
             graph.graph.replay()
             torch.cuda.synchronize()
-        graph_kernels, _ = graph_kernel_nodes(graph.graph)
+        graph_kernels = graph.kernels
         replay_records, replay_us = device_records(gprof)
         check(replay_records >= 0.99 * graph_kernels,
               f"the profiler does not trace the {label} graph's kernels: no sim/learner split")
@@ -3202,7 +3178,7 @@ def legacy_contact_check(dev, smi: str) -> dict:
     want = dict(c_out[0], terminated=c_out[2])
     step_off, step_err = envs_beyond_tol(got, want, {k: STEP_TOL[k] for k in ("q", "qd")}, E)
     check(len(step_off) <= PHYS_MAX_FLIPS, f"the legacy Ant step: card and CPU differ beyond STEP_TOL in {step_off}")
-    nodes, _ = graph_kernel_nodes(graphed_step.graph)
+    nodes = graphed_step.kernels
     period = []
     for _ in range(PHYS_TIMINGS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3255,7 +3231,7 @@ def contact_lab_phase(dev, smi: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         verdicts[name] = res.ok
-        nodes = [graph_kernel_nodes(s.graph)[0] for s in res.steps]
+        nodes = [s.kernels for s in res.steps]
         scenes[name] = dict(ok=res.ok, numbers=res.numbers, wall_s=wall, control_steps=res.control_steps,
                             graph_kernel_nodes_per_control_step=sorted(set(nodes)), graphs_captured=len(nodes),
                             printed=buf.getvalue().strip().splitlines())

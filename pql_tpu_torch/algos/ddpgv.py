@@ -50,6 +50,7 @@ from pql_tpu_torch.native import HostReplay
 from pql_tpu_torch.ops.noise import add_mixed_normal_noise, add_normal_noise
 from pql_tpu_torch.ops.running_norm import RunningMeanStd
 from pql_tpu_torch.ops.soft_update import soft_update
+from pql_tpu_torch.utils import trace
 from pql_tpu_torch.utils.trackers import Tracker
 
 STAGING_SETS = 2
@@ -163,9 +164,18 @@ class DDPGV(base.ActorCriticAgent):
 
     def train_iter(self, state: DDPGVState, draws: dict | None = None):
         """Collect and write, then ``update_times`` sampled updates."""
+        trace.iteration(self.device)
         draws = self.draw_iteration(state.gen) if draws is None else draws
-        self.ring_write(self.collect(state, draws))
-        losses = [self.update(state, self.fetch_batch(u), draws["target_normal"][u]) for u in range(self.update_times)]
+        with trace.span("env.collect"):
+            traj = self.collect(state, draws)
+        with trace.span("replay.ring_write"):
+            self.ring_write(traj)
+        losses = []
+        for u in range(self.update_times):
+            with trace.span("replay.fetch_batch"):
+                batch = self.fetch_batch(u)
+            with trace.span("learner.update"):
+                losses.append(self.update(state, batch, draws["target_normal"][u]))
         metrics = {
             "train/critic_loss": torch.stack([c for c, _ in losses]).mean(),
             "train/actor_loss": torch.stack([a for _, a in losses]).mean(),
@@ -181,7 +191,8 @@ class DDPGV(base.ActorCriticAgent):
         """(img [E, cams, T, H, W, 3], proprio, pc) rendered from the physics state."""
         task = self.env.task
         st = env_state.state
-        return task.render(st), task.proprio(st), task.pointcloud(st)
+        with trace.span("env.render"):
+            return task.render(st), task.proprio(st), task.pointcloud(st)
 
     @staticmethod
     def act(actor: nn.Module, img, proprio, pc) -> torch.Tensor:
@@ -230,7 +241,10 @@ class DDPGV(base.ActorCriticAgent):
         return {k: v.cpu() for k, v in traj.items()}
 
     def ring_write(self, traj: dict[str, torch.Tensor]) -> None:
-        self.replay.add(self.to_host(traj))
+        with trace.span("replay.to_host"):
+            host = self.to_host(traj)
+        with trace.span("replay.ring_add"):
+            self.replay.add(host)
 
     # --------------------------------------------------------------- update
 
@@ -250,12 +264,16 @@ class DDPGV(base.ActorCriticAgent):
         one copy per field (from pinned staging on the card)."""
         B = self.cfg.algo.batch_size
         if self.device.type != "cuda":
-            return {k: torch.from_numpy(v) for k, v in self.replay.sample(B).items()}
+            with trace.span("replay.gather"):
+                return {k: torch.from_numpy(v) for k, v in self.replay.sample(B).items()}
         host, copied = self._staging_set(u)
-        copied.synchronize()  # this set's previous copies have landed
-        self.replay.sample(B, out=host)
-        batch = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
-        copied.record()
+        with trace.span("replay.staging_wait"):
+            copied.synchronize()  # this set's previous copies have landed
+        with trace.span("replay.gather"):
+            self.replay.sample(B, out=host)
+        with trace.span("replay.h2d"):
+            batch = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+            copied.record()
         return batch
 
     def update(self, state: DDPGVState, batch: dict[str, torch.Tensor], normal: torch.Tensor):

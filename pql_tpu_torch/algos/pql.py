@@ -72,6 +72,7 @@ from pql_tpu_torch.parallel import make_mesh, replicate
 from pql_tpu_torch.replay import NStepState, ReplayBuffer, create_nstep, nstep_scan, replay_slots
 from pql_tpu_torch.replay.buffer import draw_sample_indices, draw_window_indices, window_fits
 from pql_tpu_torch.replay.nstep import FIELDS
+from pql_tpu_torch.utils import trace
 from pql_tpu_torch.utils.trackers import Tracker
 
 
@@ -241,6 +242,7 @@ class PQL(base.ActorCriticAgent):
 
     def train_iter(self, state: PQLState, draws: dict | None = None):
         """One iteration: sim phase, replay write, critic phase, actor phase."""
+        trace.iteration(self.device)
         draws = self.draw_iteration(state.gen) if draws is None else draws
         return self._step(state, draws, random=False)
 
@@ -259,16 +261,21 @@ class PQL(base.ActorCriticAgent):
     def _step(self, state: PQLState, draws: dict, random: bool):
         cfg = self.cfg
         horizon = cfg.algo.warm_up if random else cfg.algo.horizon_len
-        traj = self._sim_phase(state, draws, horizon, random)
-        state.nstep, emitted, _valid = nstep_scan(state.nstep, traj)
-        state.replay.add(emitted)
+        with trace.span("env.sim"):
+            traj = self._sim_phase(state, draws, horizon, random)
+        with trace.span("replay.nstep"):
+            state.nstep, emitted, _valid = nstep_scan(state.nstep, traj)
+        with trace.span("replay.add"):
+            state.replay.add(emitted)
         state.env_steps += horizon
 
         zero = torch.zeros((), device=self.device)
         critic_loss = actor_loss = zero
         if not random:
-            critic_loss = self._critic_phase(state, draws)
-            actor_loss = self._actor_phase(state, draws)
+            with trace.span("learner.critic"):
+                critic_loss = self._critic_phase(state, draws)
+            with trace.span("learner.actor"):
+                actor_loss = self._actor_phase(state, draws)
         metrics = {
             "train/critic_loss": critic_loss,
             "train/actor_loss": actor_loss,
@@ -288,37 +295,39 @@ class PQL(base.ActorCriticAgent):
         events = []
         obs = state.obs
         for t in range(horizon):
-            if cfg.algo.obs_norm:
-                if self.mesh.size > 1:
-                    state.obs_rms.update_sharded(obs)
+            with trace.span("env.actor"):
+                if cfg.algo.obs_norm:
+                    if self.mesh.size > 1:
+                        state.obs_rms.update_sharded(obs)
+                    else:
+                        state.obs_rms.update(obs)
+                    obs_n = state.obs_rms.normalize(obs)
                 else:
-                    state.obs_rms.update(obs)
-                obs_n = state.obs_rms.normalize(obs)
-            else:
-                obs_n = obs
-            if random:
-                action = draws["action_uniform"][t]
-            elif noise.type == "mixed":
-                action = add_mixed_normal_noise(
-                    state.actor(obs_n), draws["explore_normal"][t], noise.std_min, std_hi,
-                    out_bounds=(-1.0, 1.0), num_envs_global=self.num_envs, global_start=start,
-                )
-            else:
-                action = add_normal_noise(
-                    state.actor(obs_n), draws["explore_normal"][t], std_hi, out_bounds=(-1.0, 1.0)
-                )
+                    obs_n = obs
+                if random:
+                    action = draws["action_uniform"][t]
+                elif noise.type == "mixed":
+                    action = add_mixed_normal_noise(
+                        state.actor(obs_n), draws["explore_normal"][t], noise.std_min, std_hi,
+                        out_bounds=(-1.0, 1.0), num_envs_global=self.num_envs, global_start=start,
+                    )
+                else:
+                    action = add_normal_noise(
+                        state.actor(obs_n), draws["explore_normal"][t], std_hi, out_bounds=(-1.0, 1.0)
+                    )
             state.env_state, next_obs, reward, done, info = self.env.step(
                 state.env_state, action, draws["reset"][t], draws["step"][t] if "step" in draws else None
             )
 
             # episode accounting (reference pql_actor.update_tracker, :129-147)
-            cur_ret = state.cur_returns + reward
-            cur_len = state.cur_lengths + 1.0
-            done_mask = done > 0.5
-            success = info["success"].float() if "success" in info else torch.zeros_like(reward)
-            events.append(torch.stack([cur_ret, cur_len, done, success]))
-            state.cur_returns = torch.where(done_mask, torch.zeros_like(cur_ret), cur_ret)
-            state.cur_lengths = torch.where(done_mask, torch.zeros_like(cur_len), cur_len)
+            with trace.span("env.track"):
+                cur_ret = state.cur_returns + reward
+                cur_len = state.cur_lengths + 1.0
+                done_mask = done > 0.5
+                success = info["success"].float() if "success" in info else torch.zeros_like(reward)
+                events.append(torch.stack([cur_ret, cur_len, done, success]))
+                state.cur_returns = torch.where(done_mask, torch.zeros_like(cur_ret), cur_ret)
+                state.cur_lengths = torch.where(done_mask, torch.zeros_like(cur_len), cur_len)
 
             done_b = handle_timeout(done, info) if cfg.algo.handle_timeout else done
             traj["obs"].append(obs)
@@ -328,7 +337,8 @@ class PQL(base.ActorCriticAgent):
             traj["done"].append(done_b[:, None])
             obs = next_obs
         state.obs = obs
-        self._update_trackers(state, torch.stack(events), "success" in info)
+        with trace.span("env.track"):
+            self._update_trackers(state, torch.stack(events), "success" in info)
         return traj
 
     def _update_trackers(self, state: PQLState, events: torch.Tensor, has_success: bool) -> None:

@@ -35,8 +35,10 @@ A PQL run, as the JAX package's:
 - ``train_block`` calls until ``max_step`` total env steps (if set) or
   ``max_time`` seconds, counted on the host;
 - every ``algo.log_freq`` iterations a metrics record with
-  ``speed/env_steps``, ``speed/critic_updates``, ``speed/actor_updates`` and
-  the measured ``speed/env_steps_per_s``;
+  ``speed/env_steps``, ``speed/critic_updates``, ``speed/actor_updates``,
+  the measured ``speed/env_steps_per_s`` and the tracer's ``trace/`` keys
+  (``utils/trace.py::log_values``: medians over the last iterations of each
+  span's host self ms, each layer's device-clock ms and each counter);
 - every ``algo.eval_freq`` iterations an eval of ``eval_num_envs`` envs,
   dispatched on a snapshot of the actor, critic and normalizer cloned at
   dispatch and resolved at the next eval (or at the end); a new best
@@ -45,7 +47,8 @@ A PQL run, as the JAX package's:
 - every ``checkpoint_freq`` iterations (500 if unset) a full checkpoint to
   ``checkpoint_dir/state``, when ``checkpoint_dir`` is set;
 - with ``profile_dir``, a ``torch.profiler`` Chrome trace of
-  ``profile_iters`` iterations from iteration 2 on.
+  ``profile_iters`` iterations from iteration 2 on, holding the program's
+  spans as ``pql:<span>`` ranges on the trace's own clock.
 
 A PQL run on several processes (``parallel/``: one per GPU, the env axis
 split over them): the process group is made before anything touches the
@@ -62,7 +65,8 @@ IPPOV or DDPGV run (``train_baseline``), as the JAX package's: the
 same start (artifact, full-state resume, else the warm-up of an agent that
 has one: the off-policy agents; the on-policy agents have none), then one
 ``train_iter`` per iteration until the stop check; every ``algo.log_freq``
-iterations a metrics record with the measured ``speed/env_steps_per_s``;
+iterations a metrics record with the measured ``speed/env_steps_per_s``
+(and, for DDPGV, the tracer's ``trace/`` keys);
 every ``algo.eval_freq`` iterations an eval run at once on the live actor
 (a two-agent agent's: all its networks) and normalizer, a new best
 ``eval/return`` saving them and the critics to ``run_dir/best_model``; the periodic full checkpoint
@@ -90,6 +94,7 @@ from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import entry_device, parse_cli, require_card, to_dict
 from pql_tpu_torch.envs import make_eval_env
 from pql_tpu_torch.parallel import distributed
+from pql_tpu_torch.utils import trace
 from pql_tpu_torch.utils.checkpoint import (
     load_model_snapshot,
     maybe_resume_full_state,
@@ -146,7 +151,8 @@ def _maybe_full_checkpoint(cfg, gate: _Every, it: int, state) -> None:
 
 class _ProfilerHook:
     """A torch.profiler Chrome trace of ``profile_iters`` iterations from
-    iteration 2 on, into ``profile_dir/trace.json``; once per run."""
+    iteration 2 on, into ``profile_dir/trace.json``, with the program's
+    ``pql:<span>`` ranges; once per run."""
 
     def __init__(self, cfg, device: torch.device):
         self.cfg = cfg
@@ -255,6 +261,7 @@ def train_pql(cfg, logger: RunLogger, device: str | torch.device = "cuda"):
                 # measured rate: Δ(counter)/Δt, never inferred from frequencies
                 now = time.time()
                 host["speed/env_steps_per_s"] = (steps - last_steps) / max(now - last_log, 1e-9)
+                host.update(trace.log_values(trace.recent()))
                 last_log, last_steps = now, steps
                 logger.log(host, step=steps)
             if eval_gate(it):
@@ -326,6 +333,7 @@ def train_baseline(cfg, logger: RunLogger, device: str | torch.device = "cuda"):
                 host = {k: float(v) for k, v in metrics.items()}
                 now = time.time()
                 host["speed/env_steps_per_s"] = (steps - last_steps) / max(now - last_log, 1e-9)
+                host.update(trace.log_values(trace.recent()))
                 last_log, last_steps = now, steps
                 logger.log(host, step=steps)
             if eval_gate(it):  # synchronous, on the live actor and normalizer
