@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --entry   # only the CLI acceptance runs (ENTRY_RUNS)
+    python3 chip_smoke.py --hand    # only the hand's phases 8-10
 
 Needs one CUDA card and nvcc; exits nonzero without them. Phases, one JSON
 line each:
 
 1. device    — card name, device count, nvidia-smi name and power limit;
-2. build     — nvcc builds every ``pql_tpu_torch/csrc/*.cu`` for sm_90a;
+2. build     — nvcc builds every ``pql_tpu_torch/csrc/*.cu`` for sm_90a (but
+   ``hand_step.cu``, built around each hand's generated header in phase 8);
 3. kernel_check — each kernel against its plain PyTorch version on the
    card (tolerance 1e-5) on the main path's shape and edge cases, two
    launches bitwise equal, and by CUDA events around CUDA-graph replays its
@@ -33,11 +35,18 @@ line each:
 7. ant_main_path — ``algo=pql task=Ant num_envs=4096`` at full width
    (batch 8192, memory 5e6, fp32, reward scale 0.01): warm-up and at least
    20 iterations, with ms/iter, env-steps/s and, from a short profiled
-   window, device ms/iter split into the sim graph and the rest;
-8. hand_physics_check — AllegroHand and ShadowHand at 8192 envs, as
-   physics_check (with the hand's per-step draws, its tolerances and
-   ``HAND_MAX_FLIPS``), plus the graph's capture and instantiate seconds,
-   the engaged contact pairs and the goals reached;
+   window, device ms/iter split into the sim graph (on the hand: the fused
+   kernel) and the rest;
+8. hand_physics_check — the hand's fused step kernel
+   (``csrc/hand_step.cu``, ``hand_kernel_check``): its cold build (nvcc's
+   seconds, ptxas's registers and spills), then AllegroHand at 8192 and
+   16384 envs and ShadowHand at 8192: a rollout through the kernel (one
+   launch a control step, no graph), one control step against the eager
+   step on the card (``HAND_KERNEL_TOL``) and on the CPU (the hand's
+   tolerances and ``HAND_MAX_FLIPS``), the kernel's ms by CUDA events at
+   blocks of 32, 64 and 128 threads, the eager step captured as a CUDA graph
+   as the plain time, the bound (traced ops over 67 TFLOP/s, bytes over
+   3.35 TB/s), the engaged contact pairs and the goals reached;
 9. allegro_main_path — ``algo=pql task=AllegroHand num_envs=8192`` (batch
    8192, memory 5e6: ring 610 × 8192 × 124 fp32), as ant_main_path;
 10. allegro_pqld_main_path — ``algo=pql_d task=AllegroHand num_envs=16384
@@ -947,6 +956,158 @@ def physics_check(dev, tasks, E: int, max_flips: int) -> dict:
     return out
 
 
+HAND_KERNEL_ENVS = (8192, 16384)
+HAND_KERNEL_BLOCKS = (32, 64, 128)
+HAND_KERNEL_REPS = 20  # back-to-back launches a timing
+HAND_KERNEL_TIMINGS = 5
+# the fused kernel against the eager step, |Δ| / (1 + |eager|), and the goal
+# distance within which success may flip (tests/test_torch_hand_kernel.py says why)
+HAND_KERNEL_TOL, HAND_KERNEL_CUBE_V_TOL, HAND_GOAL_MARGIN = 1e-5, 2e-3, 1e-6
+PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12  # one H100 SXM (NVIDIA's data sheet)
+
+
+def hand_step_bytes(task) -> int:
+    """Bytes one env's control step needs: its rows of q, qd, the contact
+    state, the target, the action and the draw read once; q, qd, the
+    contact state and the target, the reward, terminated and success written once."""
+    m, nc = task.model, 4 * task.n_contact_pairs
+    return 4 * (m.nq + m.nv + nc + 4 + m.nu + 3) + 4 * (m.nq + m.nv + nc + 4) + 4 + 1 + 4
+
+
+def hand_kernel_gaps(task, state: dict, got: dict, want: dict, target_atol: float = 0.0) -> tuple[list[int], dict]:
+    """The envs where a hand step ``got`` differs from the eager step ``want``
+    (both from ``state``) beyond ``HAND_KERNEL_TOL`` in |Δ| / (1 + |eager|)
+    over q, qd, the contact state and the reward (the cube's six velocities:
+    ``HAND_KERNEL_CUBE_V_TOL``), in where a value is NaN, in terminated or
+    success, or in the target beyond ``target_atol``, but for an env whose
+    goal distance after the step lies within ``HAND_GOAL_MARGIN`` of the
+    success tolerance; and each field's largest gap over the other envs."""
+    import torch
+
+    from pql_tpu_torch.envs.hand import rot_dist
+
+    got = {k: v.cpu() for k, v in got.items()}
+    want = {k: v.cpu() for k, v in want.items()}
+    n, cq = want["q"].shape[0], task.cube_q
+    near = (rot_dist(want["q"][:, cq + 3 : cq + 7], state["target"].cpu()) - task.success_tolerance).abs()
+    off = torch.zeros(n, dtype=torch.bool)
+    gaps = {}
+    for k in ("q", "qd", "contact", "reward"):
+        g, w = got[k].float().reshape(n, -1), want[k].float().reshape(n, -1)
+        gap = ((g - w).abs() / (1.0 + w.abs())).nan_to_num(0.0)
+        tol = torch.full(gap.shape[-1:], HAND_KERNEL_TOL)
+        if k == "qd":
+            tol[task.cube_v : task.cube_v + 6] = HAND_KERNEL_CUBE_V_TOL
+        off |= (gap > tol).any(-1) | (torch.isnan(g) != torch.isnan(w)).any(-1)
+        gaps[k] = gap
+    for k in ("terminated", "success", "target"):
+        diff = (got[k] != want[k]) if k != "target" else ((got[k] - want[k]).abs() > target_atol)
+        off |= diff.reshape(n, -1).any(-1) & (near > HAND_GOAL_MARGIN)
+    ok = ~off
+    cube = torch.zeros(gaps["qd"].shape[-1], dtype=torch.bool)
+    cube[task.cube_v : task.cube_v + 6] = True
+    gaps["qd_cube"], gaps["qd"] = gaps["qd"][:, cube], gaps["qd"][:, ~cube]
+    rest = {k: float(v[ok].max()) if bool(ok.any()) else None for k, v in gaps.items()}
+    return [int(i) for i in off.nonzero().flatten()], rest
+
+
+def hand_kernel_check(dev, smi: str, tasks=HAND_TASKS, envs=HAND_KERNEL_ENVS) -> dict:
+    """The hand's fused step kernel: its build from cold (nvcc's seconds,
+    ptxas's registers and spills), then at each env count one control step
+    from a state rolled out through it (auto-reset, per-step draws) against
+    the eager step on the card and on the CPU; its device time by CUDA
+    events at each block size; the eager step captured as a CUDA graph
+    (what the card ran before) as the plain time; the bound: the traced ops
+    over 67 TFLOP/s and the bytes over 3.35 TB/s."""
+    import statistics
+
+    import torch
+
+    from pql_tpu_torch.envs import VecEnv, make_task
+    from pql_tpu_torch.envs.rigid import GraphedStep
+    from pql_tpu_torch.ops import kernels
+
+    out = {}
+    for name in tasks:
+        task = make_task(name)
+        t0 = time.perf_counter()
+        header = kernels.hand_step_header(task)
+        trace_s = time.perf_counter() - t0
+        build = kernels.build_hand_step(header)
+        progs = task.kernel_programs
+        ops = task.substeps * progs["substep"].op_count() + progs["finish"].op_count()
+        res = dict(trace_and_emit_s=trace_s, build_s=build["seconds"],
+                   ptxas=[ln for ln in build["ptxas"].splitlines() if "hand_control_step" in ln or "Used" in ln
+                          or "spill" in ln],
+                   ops_per_env=ops, ops_per_substep=progs["substep"].op_count(), bytes_per_env=hand_step_bytes(task),
+                   by_envs={})
+        for E in (envs if name == "AllegroHand" else envs[:1]):
+            gen = torch.Generator().manual_seed(0)
+            env = VecEnv(task, E)
+            s, _ = env.reset(task.draw_reset(gen, E).to(dev))
+            n0 = kernels.LAUNCHES["hand_control_step"]
+            for _ in range(PHYS_ROLL):
+                a = (torch.rand(E, task.action_dim, generator=gen) * 2.0 - 1.0).to(dev)
+                s, *_ = env.step(s, a, task.draw_reset(gen, E).to(dev), task.draw_step(gen, E).to(dev))
+            check(kernels.LAUNCHES["hand_control_step"] == n0 + PHYS_ROLL, f"{name}@{E}: one launch a control step")
+            check(not task._graphs, f"{name}@{E}: a graph was captured on the kernel's path")
+            state = s.state
+            action = (torch.rand(E, task.action_dim, generator=gen) * 2.0 - 1.0).to(dev)
+            draw = task.draw_step(gen, E).to(dev)
+
+            def fields(r):
+                nxt, reward, terminated, info = r
+                return dict(nxt, reward=reward, terminated=terminated, **info)
+
+            got = fields(task.dynamics(state, action, draw))
+            eager = fields(task.control_step(state, action, draw))
+            cpu = fields(task.control_step({k: v.cpu() for k, v in state.items()}, action.cpu(), draw.cpu()))
+            torch.cuda.synchronize()
+            off, gaps = hand_kernel_gaps(task, state, got, eager)
+            off_cpu, _ = hand_kernel_gaps(task, state, cpu, eager)
+            # no farther from the eager card step than the eager CPU step is, and at most 0.2% of the envs
+            check(len(off) <= len(off_cpu) and len(off) <= E // 500,
+                  f"{name}@{E}: kernel and eager step differ beyond tolerance in envs {off} (the CPU's: {off_cpu})")
+            flips, cpu_err = envs_beyond_tol(got, cpu, step_tol(task), E)
+            check(len(flips) <= HAND_MAX_FLIPS * E // 8192, f"{name}@{E}: kernel and CPU differ in envs {flips}")
+
+            def period_ms(fn, reps):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                for _ in range(reps):
+                    fn()
+                end.record()
+                torch.cuda.synchronize()
+                return start.elapsed_time(end) / reps
+
+            kernel_ms = {block: [] for block in HAND_KERNEL_BLOCKS}
+            for _ in range(HAND_KERNEL_TIMINGS):  # the block sizes in turns
+                for block in HAND_KERNEL_BLOCKS:
+                    kernel_ms[block].append(period_ms(
+                        lambda: kernels.hand_control_step(task, state, action, draw, block=block), HAND_KERNEL_REPS))
+            graph = GraphedStep(task.control_step, state, action, draw)
+            graph_ms = [period_ms(graph.graph.replay, 3) for _ in range(HAND_KERNEL_TIMINGS)]
+            bound_ops_ms = 1e3 * ops * E / PEAK_FP32_FLOPS
+            bound_bytes_ms = 1e3 * hand_step_bytes(task) * E / PEAK_BYTES_S
+            chosen = statistics.median(kernel_ms[kernels.hand_block(E)])
+            res["by_envs"][E] = dict(
+                kernel_vs_eager=gaps, kernel_vs_eager_envs_off=off, cpu_vs_eager_envs_off=off_cpu,
+                kernel_vs_cpu_max_abs_err=cpu_err, kernel_vs_cpu_envs_beyond_tol=flips,
+                terminated=int(got["terminated"].sum()), goals_reached=int(got["success"].sum()),
+                engaged_pairs=int((got["contact"][:, 3::4] > 0.5).sum()),
+                kernel_ms_by_block={b: statistics.median(v) for b, v in kernel_ms.items()},
+                kernel_ms_timings=kernel_ms, block=kernels.hand_block(E), kernel_ms=chosen,
+                graph_replay_ms=statistics.median(graph_ms), graph_replay_ms_timings=graph_ms,
+                graph_kernel_nodes=graph.kernels, graph_build_s=graph.build_s,
+                bound_ms=max(bound_ops_ms, bound_bytes_ms), bound_ops_ms=bound_ops_ms, bound_bytes_ms=bound_bytes_ms,
+                bound_by="operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
+                roofline_pct=100.0 * max(bound_ops_ms, bound_bytes_ms) / chosen)
+            del graph
+        out[name] = res
+    return out
+
+
 def rigid_main_path(dev, smi: str, argv: list[str], warm_iters: int, blocks: int, block_iters: int,
                     profiled_iters: int) -> dict:
     """A PQL path on a rigid-body or hand task at full width: warm-up, then
@@ -1037,21 +1198,26 @@ def rigid_main_path(dev, smi: str, argv: list[str], warm_iters: int, blocks: int
     kernel_rows = [r for r in rows if r.device_type == DeviceType.CUDA
                    and not getattr(r, "is_user_annotation", False)]
     kernel_ms = sum(_self_device_us(r) for r in kernel_rows) / 1e3 / profiled_iters
-    graph = task._graphs[(E, torch.device(dev))]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
-        graph.graph.replay()
-        torch.cuda.synchronize()
-    graph_kernels = graph.kernels
-    replay_records, replay_us = device_records(gprof)
-    check(replay_records >= 0.99 * graph_kernels,
-          f"the profiler does not trace the {label} graph's kernels: no sim/learner split")
-    sim_ms = replay_us / 1e3
+    graph = task._graphs.get((E, torch.device(dev)))
+    if graph is None:  # the hand's fused step kernel: one launch a control step
+        check(launches["hand_control_step"] == cfg.algo.warm_up + iters, f"{label}: hand_control_step launches")
+        graph_kernels = 1
+        sim_ms = sum(_self_device_us(r) for r in kernel_rows if "hand_control_step" in r.key) / 1e3 / profiled_iters
+    else:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
+            graph.graph.replay()
+            torch.cuda.synchronize()
+        graph_kernels = graph.kernels
+        replay_records, replay_us = device_records(gprof)
+        check(replay_records >= 0.99 * graph_kernels,
+              f"the profiler does not trace the {label} graph's kernels: no sim/learner split")
+        sim_ms = replay_us / 1e3
     ms = statistics.median(block_ms)
     return dict(
         config=" ".join(argv) + f" (batch {cfg.algo.batch_size}, memory {cfg.algo.memory_size:g}, fp32, "
                                 f"reward scale {cfg.algo.reward_scale:g})",
         replay_ring=list(ring), replay_ring_gb=state.replay.data.numel() * 4 / 1e9,
-        card=smi, iterations=iters, setup_s=setup_s, graph_build_s=graph.build_s,
+        card=smi, iterations=iters, setup_s=setup_s, graph_build_s=None if graph is None else graph.build_s,
         ms_per_iter=ms, env_steps_per_s=1e3 * E / ms, block_ms_per_iter=block_ms,
         critic_loss_last=float(lo[-1][0]), actor_loss_last=float(lo[-1][1]),
         critic_updates=state.critic_update_count, actor_updates=state.actor_update_count,
@@ -3402,7 +3568,19 @@ def main(argv: list[str]) -> int:
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
         return 0
-    check(not argv, f"unknown arguments {argv} (none, or --entry)")
+    if argv == ["--hand"]:
+        hand, s = timed(hand_kernel_check, dev, smi)
+        emit(dict(phase="hand_physics_check", card=smi, wall_s=s, tasks=hand))
+        hand_depth = (HAND_WARM_ITERS, HAND_BLOCKS, HAND_BLOCK_ITERS, HAND_PROFILED_ITERS)
+        for phase, run_argv in (("allegro_main_path", ["algo=pql", "task=AllegroHand", "num_envs=8192"]),
+                                ("allegro_pqld_main_path", ["algo=pql_d", "task=AllegroHand", "num_envs=16384",
+                                                            "algo.memory_size=2000000"])):
+            r, s = timed(rigid_main_path, dev, smi, run_argv, *hand_depth)
+            emit(dict(phase=phase, wall_s=s, **r))
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+        return 0
+    check(not argv, f"unknown arguments {argv} (none, --entry or --hand)")
 
     t0 = time.perf_counter()
     built = kernels.build_kernels()
@@ -3420,7 +3598,7 @@ def main(argv: list[str]) -> int:
     ant, s = timed(rigid_main_path, dev, smi, ["algo=pql", "task=Ant", "num_envs=4096"], ANT_WARM_ITERS,
                    ANT_BLOCKS, ANT_BLOCK_ITERS, PROFILED_ITERS)
     emit(dict(phase="ant_main_path", wall_s=s, **ant))
-    hand, s = timed(physics_check, dev, HAND_TASKS, HAND_ENVS, HAND_MAX_FLIPS)
+    hand, s = timed(hand_kernel_check, dev, smi)
     emit(dict(phase="hand_physics_check", card=smi, wall_s=s, tasks=hand))
     hand_depth = (HAND_WARM_ITERS, HAND_BLOCKS, HAND_BLOCK_ITERS, HAND_PROFILED_ITERS)
     allegro, s = timed(rigid_main_path, dev, smi, ["algo=pql", "task=AllegroHand", "num_envs=8192"], *hand_depth)

@@ -18,12 +18,19 @@ so it has ``draw_step``: 3 uniforms per env per step, the numbers the JAX
 ``_rand_quat(rng)`` draws from the env's dynamics key. ``draw_reset``
 returns the numbers the JAX ``init_state`` draws. On a CUDA device the
 whole control step (8 substeps, reward, success, fall check, goal
-re-sampling) is one captured CUDA graph per (E, device)
-(pql_tpu_torch.envs.rigid.GraphedTask); the CPU runs it eagerly.
+re-sampling) is one launch of the hand-written kernel
+``pql_tpu_torch/csrc/hand_step.cu``, one thread per env
+(``pql_tpu_torch.ops.kernels.hand_control_step``); its substep and the
+step's end are generated from this module's own algebra, traced once on
+symbolic columns (``kernel_programs``, ``pql_tpu_torch.physics.codegen``).
+The bowl palm, whose contact group has no per-pair scalar form, keeps the
+captured CUDA graph per (E, device) (pql_tpu_torch.envs.rigid.GraphedTask).
+The CPU runs the step eagerly.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -31,22 +38,27 @@ import numpy as np
 import torch
 
 from pql_tpu_torch.envs.rigid import GraphedTask
-from pql_tpu_torch.physics import FREE, Geom, HINGE, RigidBodyModel
+from pql_tpu_torch.ops import kernels
+from pql_tpu_torch.physics import FREE, Geom, HINGE, RigidBodyModel, codegen
+from pql_tpu_torch.physics import scalar_algebra as sa
 from pql_tpu_torch.physics.contact import (
     PairParams,
     SpherePairs,
     add_fext_s,
     bowl_anchored_v,
     box_corners,
+    box_ground_anchored_s,
     box_ground_anchored_v,
     derive_pair,
+    ground_anchored_s,
     ground_anchored_v,
     ground_pairs,
     point_eff_mass,
+    sphere_box_anchored_s,
     sphere_box_anchored_v,
     sphere_box_pairs,
 )
-from pql_tpu_torch.physics.dynamics import physics_substeps
+from pql_tpu_torch.physics.dynamics import _step_parts, physics_substeps
 from pql_tpu_torch.physics.spatial import quat_inv, quat_mul
 
 CUBE_HALF = 0.035
@@ -158,12 +170,17 @@ def hand_model(
     )
 
 
-def _rand_quat(u: torch.Tensor) -> torch.Tensor:
-    """Uniform random unit quaternions (Shoemake) from u [..., 3] ~ U[0, 1)."""
-    u1, u2, u3 = u.unbind(-1)
+def _rand_quat_s(u1, u2, u3) -> list:
+    """Shoemake's uniform unit quaternion [w, x, y, z] from three U[0, 1)
+    columns."""
     a, b = torch.sqrt(1.0 - u1), torch.sqrt(u1)
     t2, t3 = (2 * math.pi) * u2, (2 * math.pi) * u3
-    return torch.stack([a * torch.sin(t2), a * torch.cos(t2), b * torch.sin(t3), b * torch.cos(t3)], -1)
+    return [a * torch.sin(t2), a * torch.cos(t2), b * torch.sin(t3), b * torch.cos(t3)]
+
+
+def _rand_quat(u: torch.Tensor) -> torch.Tensor:
+    """Uniform random unit quaternions (Shoemake) from u [..., 3] ~ U[0, 1)."""
+    return torch.stack(_rand_quat_s(*u.unbind(-1)), -1)
 
 
 def rot_dist(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
@@ -246,6 +263,8 @@ class AllegroHand(GraphedTask):
         self._bowl_center = (0.0, 0.0, float(np.sqrt(self.bowl_radius**2 - 2.0 * CUBE_HALF**2)))
 
     def _make_consts(self, device: torch.device) -> _HandConsts:
+        if device.type == "cuda" and self.palm == "flat":
+            kernels.prebuild_hand_step(self)  # the fused kernel's build overlaps the rest of the set-up
         is_abduct = np.arange(self.n_dof) % LINKS_PER_FINGER == 0
         t = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
         return _HandConsts(
@@ -352,6 +371,85 @@ class AllegroHand(GraphedTask):
         terminated = fallen | bad
         next_state = {"q": q, "qd": qd, "target": new_target, "contact": contact}
         return next_state, reward, terminated, {"success": success.float()}
+
+    def dynamics(self, state, action, *draw):
+        """``control_step``: eagerly on the CPU; on a CUDA device one launch
+        of the fused step kernel, or, with the bowl palm, the captured graph."""
+        if self.palm == "bowl":
+            return super().dynamics(state, action, *draw)
+        return kernels.hand_control_step(self, state, action, *draw)
+
+    # ------------------------------------------------- the fused kernel's program
+
+    def _contact_fn_s(self):
+        """The flat palm's contact function of one substep in its per-pair
+        form: the anchored loops with each pair's gains as Python floats, in
+        ``_contact_fn``'s order of pair slots. The kernel's substep is traced
+        from it (tests/test_torch_legacy_contact.py holds each loop to its
+        vectorized group)."""
+        if self.palm != "flat":
+            raise ValueError(f"the per-pair contact function has the flat palm only, not {self.palm!r}")
+        half = [CUBE_HALF] * 3
+
+        def contact_fn(m, R_wb, p_wb, v, cs):
+            cs_new = list(cs)
+            f1, idx = ground_anchored_s(m, R_wb, p_wb, v, cs, cs_new, 0, self._pp_ground)
+            f2, idx = sphere_box_anchored_s(m, R_wb, p_wb, v, self.cube, half, cs, cs_new, idx, self._pp_cube)
+            f3, _ = box_ground_anchored_s(m, R_wb, p_wb, v, self.cube, half, cs, cs_new, idx, self._pp_corner)
+            return add_fext_s(f1, f2, f3), cs_new
+
+        return contact_fn
+
+    def _finish_s(self, q, target, act, draw):
+        """The end of ``control_step`` on columns (lists of [E] columns: the
+        substeps' q, the target, the action and the ``draw_step`` draw):
+        (target', reward, terminated, success as 0/1). The same ops as
+        ``control_step``'s tail; its sums over a row (the norms, the action
+        penalty) run left to right here."""
+        cq = self.cube_q
+        pos, quat = q[cq : cq + 3], q[cq + 3 : cq + 7]
+        rel = sa.quat_mul_s(quat, [target[0]] + [-t for t in target[1:]])
+        dist = 2.0 * torch.arcsin(torch.clamp(sa.v3_norm(rel[1:]), 0.0, 1.0))
+        success = dist < self.success_tolerance
+        fallen = sa.v3_norm(sa.v3_sub(pos, [0.0, 0.0, CUBE_HALF])) > self.fall_dist
+        penalty = 0.0
+        for a in act:
+            penalty = sa.sadd(penalty, a**2)
+        reward = (
+            torch.reciprocal(dist + self.rot_eps)
+            - self.action_penalty * penalty
+            + torch.where(success, self.reach_goal_bonus, 0.0)
+            + torch.where(fallen, self.fall_penalty, 0.0)
+        )
+        new_target = [torch.where(success, n, t) for n, t in zip(_rand_quat_s(*draw), target)]
+        finite = functools.reduce(lambda a, b: a & b, [torch.isfinite(x) for x in q])
+        return new_target, reward, fallen | ~finite, torch.where(success, 1.0, 0.0)
+
+    @functools.cached_property
+    def kernel_programs(self) -> dict[str, codegen.Program]:
+        """The fused kernel's generated part, traced once per task: "substep"
+        (q, qd, cs, act → q, qd, cs: ``_step_parts`` with the per-pair
+        contacts) and "finish" (q, target, act, draw → target, reward,
+        terminated, success: ``_finish_s``)."""
+        m = self.model
+
+        def substep(q, qd, cs, act):
+            return dict(zip(("q", "qd", "cs"), _step_parts(m, q, qd, act, self._contact_fn_s(), contact_state=cs)))
+
+        def finish(q, target, act, draw):
+            out = self._finish_s(q, target, act, draw)
+            return dict(target=out[0], reward=[out[1]], terminated=[out[2]], success=[out[3]])
+
+        progs = {}
+        for name, fn, sizes in (
+            ("substep", substep, dict(q=m.nq, qd=m.nv, cs=4 * self.n_contact_pairs, act=m.nu)),
+            ("finish", finish, dict(q=m.nq, target=4, act=m.nu, draw=3)),
+        ):
+            prog, out = codegen.trace(fn, sizes)
+            for group, cols in out.items():
+                prog.output(group, cols)
+            progs[name] = prog
+        return progs
 
 
 class ShadowHand(AllegroHand):

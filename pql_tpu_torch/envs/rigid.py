@@ -19,7 +19,8 @@ step is tens of thousands of small kernel launches, which the host could
 not issue fast enough. The CPU runs the same function eagerly. If capture
 or replay fails, the error is raised; nothing falls back to eager on the
 card. ``GraphedStep`` and ``GraphedTask`` hold that machinery for every
-task on the engine, the hand's (pql_tpu_torch.envs.hand) included.
+task on the engine; the hand (pql_tpu_torch.envs.hand) uses it for its bowl
+palm only, and runs its flat palm's step as one hand-written kernel.
 """
 
 from __future__ import annotations

@@ -2,7 +2,9 @@
 articulated dynamics engine (CRBA + RNEA + penalty contacts) on per-env [E]
 tensors: the anchored contact groups of the tasks, their per-pair loops,
 and the legacy viscous contacts (``ground_contacts``,
-``sphere_box_contacts``) of the JAX package.
+``sphere_box_contacts``) of the JAX package. ``codegen`` records the
+scalar algebra's ops on symbolic columns, for a kernel with one thread per
+env (the hand's fused control step).
 """
 
 from pql_tpu_torch.physics.model import RigidBodyModel, Geom, FREE, HINGE

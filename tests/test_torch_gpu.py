@@ -237,10 +237,14 @@ def _fields(res):
 def test_rigid_graphed_step_equals_eager_bitwise(cuda, name):
     """The captured control step and the same function run eagerly on the
     card: no reductions across envs, the same kernels in the same order. The
-    outputs, info included, are clones: the next replay leaves them alone."""
+    outputs, info included, are clones: the next replay leaves them alone.
+    A hand with the flat palm steps through the fused kernel
+    (tests/test_torch_hand_kernel.py); its graph path is the bowl palm's."""
     task, state, action, draw = _task_state(name, 512, 10, cuda)
-    assert (512, action.device) in task._graphs
+    if name in HAND_TASKS:
+        task.palm = "bowl"
     graphed = _fields(task.dynamics(state, action, *draw))
+    assert (512, action.device) in task._graphs
     eager = _fields(task.control_step(state, action, *draw))
     assert set(graphed) == set(eager)
     for k in graphed:

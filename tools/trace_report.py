@@ -25,7 +25,8 @@ the profiler's start). Prints one JSON line:
   against the untraced ms per iteration (within 5%), and whether each
   iteration's top-level spans tile its period in order;
 - ``graph_kernels_per_iter`` against libcuda's count of the graph's kernel
-  nodes, on a graphed task; ``hostring_host_ms`` (host ms of
+  nodes, on a graphed task; ``fused_steps_per_iter``, the launches of the
+  hand's fused step kernel (``env.fused_steps``), on the hand; ``hostring_host_ms`` (host ms of
   ``replay.ring_add`` and ``replay.gather``) on DDPGV;
 - the host self ms of every span and the counters of the read iterations;
 - what checks the busy time: the profile's device records per iteration
@@ -99,6 +100,11 @@ def period_ms(rows: list) -> float | None:
 
 def graph_kernels_per_iter(rows: list) -> float | None:
     counts = [r.counters.get("env.graph_kernels") for r in rows]
+    return None if not counts or None in counts else statistics.median(counts)
+
+
+def fused_steps_per_iter(rows: list) -> float | None:
+    counts = [r.counters.get("env.fused_steps") for r in rows]
     return None if not counts or None in counts else statistics.median(counts)
 
 
@@ -202,6 +208,9 @@ def measure(cell_name: str, seed: int) -> dict:
         line.update(graph_kernels_per_iter=graph_kernels_per_iter(rows),
                     graph_kernel_nodes=[graph_kernel_nodes(g.graph)[0] for g in graphs],
                     graph_replay_ms=graph_replay_ms(graphs[0].graph))
+    fused = fused_steps_per_iter(rows)
+    if fused is not None:
+        line["fused_steps_per_iter"] = fused
     hostring = hostring_host_ms(rows)
     if hostring is not None:
         line["hostring_host_ms"] = hostring
