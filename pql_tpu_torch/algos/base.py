@@ -10,6 +10,10 @@ applies, while optax scales by max/norm and only when norm ≥ max.
 The off-policy baselines also share the episode statistics wired to the
 task's info keys (``make_stats``), the exploration action, the rollout and
 the actor-critic construction.
+
+PQL's learner phases replay as CUDA graphs on a card (``PhaseGraphs``); in
+a graph an AdamW step is ``adamw_graph_step``, the default step with its
+per-step scalars read from the device.
 """
 
 from __future__ import annotations
@@ -18,10 +22,13 @@ import torch
 from torch import nn
 
 from pql_tpu_torch.envs.base import VecEnv, handle_timeout
+from pql_tpu_torch.envs.rigid import collected_gc, graph_kernel_nodes
 from pql_tpu_torch.models import get_model
+from pql_tpu_torch.ops import kernels
 from pql_tpu_torch.ops.noise import add_mixed_normal_noise, add_normal_noise
 from pql_tpu_torch.ops.schedules import schedule_value
 from pql_tpu_torch.replay.nstep import FIELDS
+from pql_tpu_torch.utils import trace
 from pql_tpu_torch.utils.trackers import EpisodeStats
 
 
@@ -219,23 +226,29 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
 
 
 def optimizer_step(opt: torch.optim.Optimizer, params: list[torch.Tensor],
-                   grads: list[torch.Tensor], max_grad_norm: float | None, reduce=None) -> None:
+                   grads: list[torch.Tensor], max_grad_norm: float | None, reduce=None,
+                   adam: torch.Tensor | None = None) -> None:
     """``reduce(grads)`` in place if given (PQL's mean over the ranks), clip
-    (if max_grad_norm is set), then one AdamW step with ``grads``."""
+    (if max_grad_norm is set), then one AdamW step with ``grads``: ``opt.step()``,
+    or with ``adam`` (a row of ``adamw_scalars``) the same step as a CUDA
+    graph can hold it (``adamw_graph_step``)."""
     if reduce is not None:
         reduce(grads)
     if max_grad_norm is not None:
         clip_by_global_norm_(grads, max_grad_norm)
+    if adam is not None:
+        adamw_graph_step(opt, params, grads, adam)
+        return
     for p, g in zip(params, grads):
         p.grad = g
     opt.step()
 
 
 def descend(opt: torch.optim.Optimizer, params: list[torch.Tensor], loss: torch.Tensor,
-            max_grad_norm: float | None, reduce=None) -> torch.Tensor:
+            max_grad_norm: float | None, reduce=None, adam: torch.Tensor | None = None) -> torch.Tensor:
     """One optimizer step on ``loss``'s gradients w.r.t. ``params`` alone
     (other parameters the loss reads get none); returns the detached loss."""
-    optimizer_step(opt, params, list(torch.autograd.grad(loss, params)), max_grad_norm, reduce)
+    optimizer_step(opt, params, list(torch.autograd.grad(loss, params)), max_grad_norm, reduce, adam)
     return loss.detach()
 
 
@@ -246,3 +259,156 @@ def target_policy_actions(cfg, actor: nn.Module, next_obs: torch.Tensor, normal:
     return add_normal_noise(
         actor(next_obs), normal, cfg.algo.noise.tgt_pol_std, noise_bounds=(-b, b), out_bounds=(-1.0, 1.0)
     )
+
+
+# ------------------------------------------------------ learner phases as graphs
+
+
+def _adamw_group(opt: torch.optim.Optimizer) -> dict:
+    """The one parameter group of a default ``build_optimizer`` AdamW, the
+    form ``adamw_graph_step`` repeats; any other is refused."""
+    (group,) = opt.param_groups
+    form = {k: group.get(k) for k in ("amsgrad", "maximize", "capturable", "fused", "differentiable")}
+    if not isinstance(opt, torch.optim.AdamW) or any(form.values()) or group.get("foreach") is False:
+        raise ValueError(f"a graphed step repeats the default foreach AdamW, not {type(opt).__name__} {form}")
+    return group
+
+
+def adamw_scalars(opt: torch.optim.AdamW, steps: int, device: torch.device) -> torch.Tensor:
+    """[steps, 2] float32 on ``device``: the step size −lr/(1 − β1^t) and
+    √(1 − β2^t) of the optimizer's next ``steps`` steps, worked out on the
+    host in float64 from its step count as ``torch.optim.AdamW`` works them
+    out, rounded to float32 as its kernels take them; copied without a wait."""
+    group = _adamw_group(opt)
+    lr, (b1, b2) = group["lr"], group["betas"]
+    t0 = float(opt.state[group["params"][0]]["step"])  # every parameter's count is the same
+    rows = [((lr / (1 - b1 ** t)) * -1, (1 - b2 ** t) ** 0.5) for t in (t0 + k for k in range(1, steps + 1))]
+    host = torch.tensor(rows, dtype=torch.float32)
+    return (host.pin_memory() if device.type == "cuda" else host).to(device, non_blocking=True)
+
+
+@torch.no_grad()
+def adamw_graph_step(opt: torch.optim.AdamW, params: list[torch.Tensor], grads: list[torch.Tensor],
+                     adam: torch.Tensor) -> None:
+    """One step of the default (foreach) ``torch.optim.AdamW`` on CUDA, op for
+    op, with its two per-step scalars read from ``adam`` = (step size,
+    √(1 − β2^t)) on the device where it takes Python floats: a step a CUDA
+    graph can hold. On an H100 it equals ``opt.step()`` bit for bit (the
+    card's tests); AdamW's own capturable form does not (it takes the bias
+    corrections in float32 and divides in another order). The step counts
+    are the caller's to advance."""
+    group = _adamw_group(opt)
+    lr, (b1, b2), eps, wd = group["lr"], group["betas"], group["eps"], group["weight_decay"]
+    state = [opt.state[p] for p in params]
+    exp_avgs, exp_avg_sqs = [s["exp_avg"] for s in state], [s["exp_avg_sq"] for s in state]
+    torch._foreach_mul_(params, 1 - lr * wd)
+    torch._foreach_lerp_(exp_avgs, grads, 1 - b1)
+    torch._foreach_mul_(exp_avg_sqs, b2)
+    torch._foreach_addcmul_(exp_avg_sqs, grads, grads, 1 - b2)
+    denom = torch._foreach_sqrt(exp_avg_sqs)
+    torch._foreach_div_(denom, adam[1])
+    torch._foreach_add_(denom, eps)
+    # p + step·(m / denom) in one rounding, as the foreach addcdiv with a host scalar
+    torch._foreach_addcmul_(params, torch._foreach_div(exp_avgs, denom), [adam[0]] * len(params))
+
+
+def capture_graph(fn, device: torch.device):
+    """``fn()`` captured in a CUDA graph on ``device``, not run: (the graph,
+    fn's output, the graph's kernel nodes as libcuda counts them)."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # instantiated below, after its nodes can be counted
+    with torch.cuda.device(device), collected_gc(), torch.cuda.graph(graph):
+        out = fn()
+    graph.instantiate()
+    return graph, out, graph_kernel_nodes(graph)[0]
+
+
+class PhaseGraph:
+    """One learner phase ``fn(*inputs) -> loss`` captured as a CUDA graph.
+    ``inputs`` are copied into static buffers before each replay; everything
+    else the phase reads and writes (parameters, optimizer state, the
+    replay ring, the normalizer) is read in place, so it must keep its
+    storage. Each call returns a clone of the loss: the next replay
+    overwrites the graph's own.
+
+    The capture runs the phase's Python but none of its kernels, so the
+    launch counts the kernels' wrappers made during it (``kernels.LAUNCHES``)
+    are taken back and made by each replay instead."""
+
+    def __init__(self, fn, inputs: tuple[torch.Tensor, ...]):
+        self.inputs = [x.clone() for x in inputs]
+        counted = dict(kernels.LAUNCHES)
+        with trace.span("setup.learner_capture") as span:
+            self.graph, self.out, self.kernels = capture_graph(lambda: fn(*self.inputs), inputs[0].device)
+        self.launches = {k: n - counted[k] for k, n in kernels.LAUNCHES.items() if n != counted[k]}
+        kernels.LAUNCHES.update(counted)
+        self.capture_s = span.seconds  # host seconds of the capture and instantiation (None with the tracer off)
+        trace.count("learner.graph_captures")
+
+    def __call__(self, *inputs: torch.Tensor) -> torch.Tensor:
+        with trace.span("learner.graph_in"):
+            for buf, x in zip(self.inputs, inputs, strict=True):
+                if x.shape != buf.shape:
+                    raise ValueError(f"a phase input of shape {tuple(x.shape)}, captured as {tuple(buf.shape)}")
+                buf.copy_(x)
+        with trace.span("learner.graph_replay"):
+            self.graph.replay()
+        for name, n in self.launches.items():
+            kernels.LAUNCHES[name] += n
+        trace.count("learner.graph_replays")
+        trace.count("learner.graph_kernels", self.kernels)
+        return self.out.clone()
+
+
+class PhaseGraphs:
+    """An agent's learner phases as CUDA graphs, one per phase and update
+    count (so every update ratio gets its own). A key's first call runs the
+    phase eagerly with ``opt.step()``, on a side stream as capture requires
+    (it is that iteration's real update); its second captures the phase
+    with ``adamw_graph_step`` in place of ``opt.step()`` and replays it, and
+    every later call replays. No update runs twice or is skipped, and a
+    replay does the eager arithmetic bit for bit. After a replay the
+    optimizer's step counts (host tensors) advance by the phase's steps.
+
+    ``bound`` names the objects whose tensors the graphs read in place (the
+    modules, the optimizers and their state dicts, the ring, the
+    normalizer's moments). Where any differs from those of the last call,
+    because a checkpoint load gave an optimizer new state or another state
+    came in, every graph is dropped and each key starts again eagerly."""
+
+    def __init__(self):
+        self.graphs: dict[tuple[str, int], PhaseGraph | None] = {}  # None: the key ran once, eagerly
+        self.bound: tuple = ()
+
+    def run(self, phase: str, steps: int, bound: tuple, fn, inputs: tuple[torch.Tensor, ...],
+            opt: torch.optim.AdamW) -> torch.Tensor:
+        """The loss of a phase of ``steps`` steps of ``opt``: ``fn(*inputs)``
+        eagerly, ``fn(*inputs, adam)`` in its graph (``adam``: the steps'
+        ``adamw_scalars``)."""
+        if len(bound) != len(self.bound) or any(a is not b for a, b in zip(bound, self.bound)):
+            self.graphs.clear()
+            self.bound = bound
+        key = (phase, steps)
+        if key not in self.graphs:
+            self.graphs[key] = None
+            return self._eager(fn, inputs)
+        inputs = (*inputs, adamw_scalars(opt, steps, inputs[0].device))
+        graph = self.graphs[key]
+        if graph is None:
+            graph = self.graphs[key] = PhaseGraph(fn, inputs)
+        loss = graph(*inputs)
+        torch._foreach_add_([opt.state[p]["step"] for p in opt.param_groups[0]["params"]], float(steps))
+        return loss
+
+    @staticmethod
+    def _eager(fn, inputs: tuple[torch.Tensor, ...]) -> torch.Tensor:
+        dev = inputs[0].device
+        if dev.type != "cuda":
+            return fn(*inputs)
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = fn(*inputs)
+        main.wait_stream(side)
+        out.record_stream(main)
+        return out

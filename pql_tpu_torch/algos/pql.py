@@ -48,11 +48,23 @@ kernel at [batch_local, 51]); gradients are averaged over the ranks before
 the clip and the AdamW step, and the phases' losses after them; the episode
 events are gathered before the trackers. One rank runs exactly the one-GPU
 path, without a collective.
+
+**On a card with one rank** the critic and actor phases replay as CUDA
+graphs (``base.PhaseGraphs``), one per phase and update count, where the
+eager phases are ~190 launches an update that the host issues one at a
+time: a key's first call runs eagerly, its second captures and replays.
+The graphs read the draws' row indices (worked out eagerly from the ring's
+host pointers), the smoothing normals and AdamW's two per-step scalars
+(worked out on the host as ``opt.step()`` works them out) from static
+buffers, and everything else in place; a graphed AdamW step is the default
+one op for op (``base.adamw_graph_step``), so a replay equals the eager
+phase bit for bit. The CPU and several ranks run the phases eagerly.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -127,6 +139,11 @@ class PQL(base.ActorCriticAgent):
             cfg.algo.sample_slots, self.batch_local, self.e_local) else 0
         self.iters_per_call = max(int(cfg.algo.iters_per_call), 1)
         self._target_copy: nn.Module | None = None
+        # On a card with one rank the learner phases replay as CUDA graphs
+        # (``base.PhaseGraphs``); a test may set ``capture_phases`` False to
+        # run the same arithmetic eagerly.
+        self.capture_phases = self.device.type == "cuda" and self.mesh.size == 1
+        self._graphs = base.PhaseGraphs()
 
     def set_ratios(self, critic_sample_ratio: int, critic_actor_ratio: int) -> None:
         """Update ratios from the next iteration on (pql_tpu/algos/pql.py:268-293):
@@ -376,11 +393,9 @@ class PQL(base.ActorCriticAgent):
     def _normalize_clip(self, state: PQLState, x: torch.Tensor) -> torch.Tensor:
         return state.obs_rms.normalize_clip(x) if self.cfg.algo.obs_norm else x
 
-    def _phase_batches(self, state: PQLState, draws: dict, phase: str, count: int, fields):
-        """The ``count`` batches of a learner phase, one per update: each a
-        row gather at its update, or all of them in one gather now with
-        ``prefetch_batches`` (the same rows: the ring does not change during
-        the learner phases)."""
+    def _phase_index(self, state: PQLState, draws: dict, phase: str, count: int) -> torch.Tensor:
+        """The flat replay rows [count, B] of a learner phase's batches, one
+        row of indices per update (on the host's pointers, so never in a graph)."""
         replay = state.replay
         if f"{phase}_win_slot" in draws:
             index = replay.window_index(draws[f"{phase}_win_slot"], draws[f"{phase}_win_off"], self.batch_local)
@@ -389,12 +404,39 @@ class PQL(base.ActorCriticAgent):
         if index.shape[0] != count:
             raise ValueError(f"{index.shape[0]} {phase} batches drawn for {count} updates: "
                              "draws made before a set_ratios do not fit the iterations after it")
+        return index
+
+    def _phase_batches(self, state: PQLState, index: torch.Tensor, fields):
+        """The batches of a learner phase, one per update: each a row gather
+        at its update, or all of them in one gather now with
+        ``prefetch_batches`` (the same rows: the ring does not change during
+        the learner phases)."""
+        replay = state.replay
         if self.cfg.algo.prefetch_batches:
             rows = replay.rows(index)
             return (replay.split(r, fields) for r in rows)
         return (replay.split(replay.rows(i), fields) for i in index)
 
+    def _learn(self, state: PQLState, phase: str, updates, opt, index: torch.Tensor, *inputs: torch.Tensor):
+        """``updates(state, index, *inputs)``, a phase's device work, which
+        steps ``opt`` once an update: eagerly, or through the phase's CUDA
+        graph for its update count."""
+        if not self.capture_phases:
+            return updates(state, index, *inputs)
+        rms = state.obs_rms
+        bound = (state.actor, state.critic, state.critic_target, state.actor_opt, state.critic_opt,
+                 state.actor_opt.state, state.critic_opt.state, state.replay.data, rms.mean, rms.var, rms.count)
+        return self._graphs.run(phase, index.shape[0], bound, functools.partial(updates, state), (index, *inputs), opt)
+
     def _critic_phase(self, state: PQLState, draws: dict) -> torch.Tensor:
+        index = self._phase_index(state, draws, "critic", self.n_critic)
+        loss = self._learn(state, "critic", self._critic_updates, state.critic_opt, index, draws["target_normal"])
+        state.critic_update_count += self.n_critic
+        return loss
+
+    def _critic_updates(self, state: PQLState, index: torch.Tensor, target_normal: torch.Tensor,
+                        adam: torch.Tensor | None = None) -> torch.Tensor:
+        """The critic phase's updates; ``adam``: the AdamW scalars of a graph's steps."""
         cfg = self.cfg
         gamma_n = cfg.algo.gamma ** cfg.algo.nstep
         params = list(state.critic.parameters())
@@ -405,14 +447,12 @@ class PQL(base.ActorCriticAgent):
         # state.critic_target and are seen from the next iteration on.
         target_net = self._frozen_target(state)
         losses = []
-        for u, batch in enumerate(self._phase_batches(state, draws, "critic", self.n_critic, FIELDS)):
+        for u, batch in enumerate(self._phase_batches(state, index, FIELDS)):
             obs_n = self._normalize_clip(state, batch["obs"])
             next_obs_n = self._normalize_clip(state, batch["next_obs"])
             reward, done = batch["reward"].contiguous(), batch["done"].contiguous()
             with torch.no_grad():
-                next_actions = base.target_policy_actions(
-                    cfg, state.actor, next_obs_n, draws["target_normal"][u]
-                )
+                next_actions = base.target_policy_actions(cfg, state.actor, next_obs_n, target_normal[u])
                 if cfg.algo.distl:
                     p1_t, p2_t = target_net(next_obs_n, next_actions)
                     target = project(p1_t, p2_t, reward, done, gamma_n, cfg.algo.v_min, cfg.algo.v_max)
@@ -424,9 +464,9 @@ class PQL(base.ActorCriticAgent):
                 loss = binary_cross_entropy(out1, target) + binary_cross_entropy(out2, target)
             else:
                 loss = torch.mean(torch.square(out1 - target)) + torch.mean(torch.square(out2 - target))
-            losses.append(base.descend(state.critic_opt, params, loss, cfg.algo.max_grad_norm, self._grad_reduce()))
+            losses.append(base.descend(state.critic_opt, params, loss, cfg.algo.max_grad_norm, self._grad_reduce(),
+                                       None if adam is None else adam[u]))
             soft_update(state.critic_target, state.critic, cfg.algo.tau)
-        state.critic_update_count += self.n_critic
         return self._phase_loss(losses)
 
     @torch.no_grad()
@@ -439,15 +479,22 @@ class PQL(base.ActorCriticAgent):
         return self._target_copy
 
     def _actor_phase(self, state: PQLState, draws: dict) -> torch.Tensor:
+        index = self._phase_index(state, draws, "actor", self.n_actor)
+        loss = self._learn(state, "actor", self._actor_updates, state.actor_opt, index)
+        state.actor_update_count += self.n_actor
+        return loss
+
+    def _actor_updates(self, state: PQLState, index: torch.Tensor, adam: torch.Tensor | None = None) -> torch.Tensor:
+        """The actor phase's updates; ``adam``: the AdamW scalars of a graph's steps."""
         cfg = self.cfg
         params = list(state.actor.parameters())
         losses = []
-        for batch in self._phase_batches(state, draws, "actor", self.n_actor, ("obs",)):
+        for u, batch in enumerate(self._phase_batches(state, index, ("obs",))):
             obs_n = self._normalize_clip(state, batch["obs"])
             # grads w.r.t. the actor only: the critic's parameters get none
             loss = -torch.mean(state.critic.q_min(obs_n, state.actor(obs_n)))
-            losses.append(base.descend(state.actor_opt, params, loss, cfg.algo.max_grad_norm, self._grad_reduce()))
-        state.actor_update_count += self.n_actor
+            losses.append(base.descend(state.actor_opt, params, loss, cfg.algo.max_grad_norm, self._grad_reduce(),
+                                       None if adam is None else adam[u]))
         return self._phase_loss(losses)
 
     # ------------------------------------------------------------ eval hook

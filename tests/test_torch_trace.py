@@ -21,6 +21,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from pql_tpu_torch.algos import base
 from pql_tpu_torch.algos.ddpgv import DDPGV
 from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import make_config
@@ -233,7 +234,46 @@ def test_graphed_step_counts_captures_replays_and_kernel_nodes(monkeypatch):
         warmup=None, capture=None, instantiate=None)
 
 
-# ------------------------------------------------------- the device clock
+def test_learner_graphs_count_captures_replays_and_kernel_nodes(monkeypatch):
+    """PQL's phases through stand-in graphs on the CPU (each replay runs the
+    phase): the host-only ``setup.learner_capture`` span in each phase's
+    second call, the learner's graph counters, a replay's nested spans as
+    ``PQL_SHAPE`` has them, and the report's reader of the kernel nodes
+    replayed an iteration."""
+
+    class _Graph:
+        def __init__(self, fn):
+            self.fn, self.out = fn, torch.zeros(())
+
+        def replay(self):
+            self.out.copy_(self.fn())
+
+    def capture(fn, device):
+        graph = _Graph(fn)
+        return graph, graph.out, 321
+
+    monkeypatch.setattr(base, "capture_graph", capture)
+    cfg = make_config("pql", task="Cartpole", num_envs=8, algo__batch_size=32, algo__memory_size=4096,
+                      algo__warm_up=4, algo__critic_sample_ratio=2, algo__critic_actor_ratio=2)
+    agent = PQL(cfg, device="cpu")
+    agent.capture_phases = True
+    state, _ = agent.warmup(agent.init(0))
+    for _ in range(3):
+        state, _ = agent.train_iter(state)
+    iters = _iterations(trace.recent())
+
+    def nested(rec):
+        out = {}
+        for s in rec.spans:
+            if s.parent >= 0 and rec.spans[s.parent].name.startswith("learner."):
+                out.setdefault(rec.spans[s.parent].name, []).append(s.name)
+        return out
+
+    shape = {name: list(inner) for name, inner in report.PQL_SHAPE if name.startswith("learner.")}
+    assert [nested(r) for r in iters] == [{}, {k: ["setup.learner_capture", *v] for k, v in shape.items()}, shape]
+    replayed = {"learner.graph_replays": 2, "learner.graph_kernels": 2 * 321}
+    assert [r.counters for r in iters] == [{}, {"learner.graph_captures": 2, **replayed}, replayed]
+    assert report.graph_kernels_per_iter(iters[1:], "learner.graph_kernels") == 2 * 321
 
 
 class _FakeEvent:
@@ -460,7 +500,8 @@ def test_device_segments_tile_the_iteration_on_the_card():
     """PQL Ant at 256 envs on the card: every read iteration's top-level
     spans lie in order inside its period, the layers' segments and the
     ``iteration`` rest sum to it, and the graph counters match libcuda's
-    count of the captured step."""
+    count of the captured step and of the learner's two phase graphs
+    (eager in the first iteration, captured in the second)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the device clock is CUDA events")
     from pql_tpu_torch.algos.base import set_precision
@@ -477,8 +518,11 @@ def test_device_segments_tile_the_iteration_on_the_card():
     assert len(rows) == 5
     (graph,) = agent.env.task._graphs.values()
     kernels = rigid.graph_kernel_nodes(graph.graph)[0]
+    learner = sum(g.kernels for g in agent._graphs.graphs.values())  # the critic's and the actor's graph
     for rec in rows:
         assert tuple(_top(rec)) == PQL_TOP and report.tiles(rec)
         dev = rec.device_ms()
         assert sum(dev.values()) == pytest.approx(rec.period_ms) and dev["iteration"] >= 0
-        assert rec.counters == {"env.graph_replays": 1, "env.graph_kernels": kernels}
+        replayed = {} if rec.iteration == 0 else {"learner.graph_replays": 2, "learner.graph_kernels": learner}
+        captured = {"learner.graph_captures": 2} if rec.iteration == 1 else {}
+        assert rec.counters == {"env.graph_replays": 1, "env.graph_kernels": kernels, **replayed, **captured}

@@ -25,7 +25,10 @@ the profiler's start). Prints one JSON line:
   against the untraced ms per iteration (within 5%), and whether each
   iteration's top-level spans tile its period in order;
 - ``graph_kernels_per_iter`` against libcuda's count of the graph's kernel
-  nodes, on a graphed task; ``fused_steps_per_iter``, the launches of the
+  nodes, on a graphed task; the learner's graphs on PQL on the card:
+  ``learner_graph_kernels_per_iter`` (kernel nodes replayed an iteration,
+  ``learner.graph_kernels``) against each graph's count, and each graph's
+  capture seconds (``setup.learner_capture``); ``fused_steps_per_iter``, the launches of the
   hand's fused step kernel (``env.fused_steps``), on the hand; ``hostring_host_ms`` (host ms of
   ``replay.ring_add`` and ``replay.gather``) on DDPGV;
 - the host self ms of every span and the counters of the read iterations;
@@ -62,10 +65,12 @@ for path in (ROOT, BENCH):
 LAYERS = ("env", "replay", "learner", "iteration")
 WINDOW_ITERS = 4
 HOSTRING_SPANS = ("replay.ring_add", "replay.gather")
-# one PQL iteration at horizon 1 on a graphed task: (top-level span, its nested spans)
+# one PQL iteration at horizon 1 on a graphed task, its learner phases replayed: (top-level span, its nested spans)
+LEARNER_REPLAY = ("learner.graph_in", "learner.graph_replay")
 PQL_SHAPE = (("env.sim", ("env.actor", "env.graph_in", "env.graph_replay", "env.graph_out", "env.track",
                           "env.track")),
-             ("replay.nstep", ()), ("replay.add", ()), ("learner.critic", ()), ("learner.actor", ()))
+             ("replay.nstep", ()), ("replay.add", ()), ("learner.critic", LEARNER_REPLAY),
+             ("learner.actor", LEARNER_REPLAY))
 
 
 def window(records: list) -> list:
@@ -98,8 +103,8 @@ def period_ms(rows: list) -> float | None:
     return None if not periods or None in periods else statistics.median(periods)
 
 
-def graph_kernels_per_iter(rows: list) -> float | None:
-    counts = [r.counters.get("env.graph_kernels") for r in rows]
+def graph_kernels_per_iter(rows: list, counter: str = "env.graph_kernels") -> float | None:
+    counts = [r.counters.get(counter) for r in rows]
     return None if not counts or None in counts else statistics.median(counts)
 
 
@@ -208,6 +213,12 @@ def measure(cell_name: str, seed: int) -> dict:
         line.update(graph_kernels_per_iter=graph_kernels_per_iter(rows),
                     graph_kernel_nodes=[graph_kernel_nodes(g.graph)[0] for g in graphs],
                     graph_replay_ms=graph_replay_ms(graphs[0].graph))
+    learner = getattr(agent, "_graphs", None)  # PQL's phase graphs
+    phases = {} if learner is None else {"/".join(map(str, k)): g for k, g in learner.graphs.items() if g is not None}
+    if phases:
+        line.update(learner_graph_kernels_per_iter=graph_kernels_per_iter(rows, "learner.graph_kernels"),
+                    learner_graph_kernel_nodes={k: g.kernels for k, g in phases.items()},
+                    learner_capture_s={k: g.capture_s for k, g in phases.items()})
     fused = fused_steps_per_iter(rows)
     if fused is not None:
         line["fused_steps_per_iter"] = fused
@@ -252,8 +263,9 @@ def microbench(iters: int = 2000, rounds: int = 5) -> dict:
                     with trace.span(sub):
                         pass
                 if inner:
-                    trace.count("env.graph_replays")
-                    trace.count("env.graph_kernels", 1)
+                    layer = name.split(".", 1)[0]
+                    trace.count(f"{layer}.graph_replays")
+                    trace.count(f"{layer}.graph_kernels", 1)
 
     kinds = dict(base=(lambda: None, True), top=(top, True), nested=(nested, True), pql=(pql_shape, True),
                  pql_off=(pql_shape, False))
