@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --entry   # only the CLI acceptance runs (ENTRY_RUNS)
     python3 chip_smoke.py --hand    # only the hand's phases 8-10
+    python3 chip_smoke.py --clip-adamw   # only clip_adamw_step's build and check
 
 Needs one CUDA card and nvcc; exits nonzero without them. Phases, one JSON
 line each:
@@ -12,12 +13,13 @@ line each:
 2. build     — nvcc builds every ``pql_tpu_torch/csrc/*.cu`` for sm_90a (but
    ``hand_step.cu``, built around each hand's generated header in phase 8);
 3. kernel_check — each kernel against its plain PyTorch version on the
-   card (tolerance 1e-5) on the main path's shape and edge cases, two
-   launches bitwise equal, and by CUDA events around CUDA-graph replays its
-   warm time (``ms``: the same inputs, resident in L2, as on the main path),
-   its cold time (``ms_cold``: input sets rotated past the L2), the cold time
-   of one elementwise pass over the same bytes (``same_bytes_ms``), the plain
-   version's time and the bound;
+   card (tolerance 1e-5; ``clip_adamw_step`` bit for bit, ``check_clip_adamw``)
+   on the main path's shape and edge cases, two launches bitwise equal, and
+   by CUDA events around CUDA-graph replays its warm time (``ms``: the same
+   inputs, resident in L2, as on the main path), its cold time (``ms_cold``:
+   input sets rotated past the L2), the cold time of one elementwise pass
+   over the same bytes (``same_bytes_ms``), the plain version's time and the
+   bound;
 4. reference — two PQL-D iterations at a small size on the card and on
    the CPU from the same state with the same draws;
 5. main_path — ``algo=pql_d task=Cartpole num_envs=4096`` at full width
@@ -258,6 +260,16 @@ TOL = 1e-5  # kernel vs plain version, fp32 (ulp-level: support by i*dz+v_min vs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 COLD_SETS = 32  # input sets rotated for cold times: 32 x 5.08 MB = 163 MB, over 3x the 50 MB L2
+# PQL's networks on AllegroHand: the critic's (400,386 elements) and the actor's (193,936) parameter shapes
+CLIP_ADAMW_SHAPES = {
+    "critic": [(512, 69), (512,), (256, 512), (256,), (128, 256), (128,), (1, 128), (1,)] * 2,
+    "actor": [(512, 53), (512,), (256, 512), (256,), (128, 256), (128,), (16, 128), (16,)],
+}
+# The kernel's squared norm is at most 25 fp32 roundings deep (8 fmas a thread, two 8-level butterflies, one
+# add of the partials for up to 256 blocks), so its square root is within (25 / 2 + 1) * 2**-24 = 8.0e-7 of the
+# exact norm; a full chunk of 2,048 squares lost or doubled moves it by ~2.5e-3 at these shapes.
+CLIP_NORM_RTOL = 1e-6
+CLIP_ADAMW_COLD_SETS = 8  # 8 x 11.2 MB (the critic's) = 90 MB, past the 50 MB L2
 RIGID_TASKS = ("Ant", "Humanoid", "Anymal")
 PHYS_ENVS = 4096
 PHYS_ROLL = 50  # control steps before the compared one
@@ -676,6 +688,88 @@ def check_c51(dev) -> dict:
     )
 
 
+def check_clip_adamw(dev) -> dict:
+    """clip_adamw_step at the critic's and the actor's shapes: against its
+    plain version bit for bit with the norm under the max; with clipping on,
+    bit for bit once the plain clip takes the kernel's norm, that norm within
+    ``CLIP_NORM_RTOL`` of the fp64 one, and within ``TOL`` of the plain
+    version with its own norm (``max_abs_err``); two launches bitwise equal;
+    then its warm and cold times, one copy of the same bytes, the plain tail
+    captured as one graph (and its kernel nodes), and the bound. Results by
+    shape; the critic's on top."""
+    import torch
+    from pql_tpu_torch.algos.base import capture_graph
+    from pql_tpu_torch.ops.kernels import clip_adamw_step, clip_adamw_step_plain
+
+    hyper = (5e-4, (0.9, 0.999), 1e-8, 0.01)
+    max_norm = 0.5
+    gen = torch.Generator(device=dev).manual_seed(0)
+    adam = torch.tensor([-5e-4 / (1 - 0.9 ** 7), (1 - 0.999 ** 7) ** 0.5], device=dev)
+
+    def draw(shapes, scale):
+        r = lambda sh: torch.randn(sh, generator=gen, device=dev)  # noqa: E731
+        return ([r(sh) for sh in shapes], [r(sh) * scale for sh in shapes], [r(sh) * 1e-2 for sh in shapes],
+                [r(sh).square() * 1e-4 for sh in shapes])
+
+    def clone(ts):
+        return [[t.clone() for t in x] for x in ts]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for xa, ya in zip(a, b) for x, y in zip(xa, ya))
+
+    out = {}
+    for name, shapes in CLIP_ADAMW_SHAPES.items():
+        n = sum(math.prod(sh) for sh in shapes)
+        got = draw(shapes, 1e-4)  # the norm under the max
+        want, again = clone(got), clone(got)
+        clip_adamw_step(*got, adam, max_norm, *hyper)
+        clip_adamw_step(*again, adam, max_norm, *hyper)
+        clip_adamw_step_plain(*want, adam, max_norm, *hyper)
+        torch.cuda.synchronize()
+        check(same(got, want), f"clip_adamw_step {name}: not the plain version bit for bit under the max")
+        check(same(got, again), f"clip_adamw_step {name}: two launches differ")
+        got = draw(shapes, 1.0)  # clipped: a norm of ~600 against the max's 0.5
+        want, own = clone(got), clone(got)
+        norm = clip_adamw_step(*got, adam, max_norm, *hyper)
+        clipped = [torch.where(norm < max_norm, g, g / norm * max_norm) for g in want[1]]
+        clip_adamw_step_plain(want[0], clipped, want[2], want[3], adam, None, *hyper)
+        plain_norm = clip_adamw_step_plain(*own, adam, max_norm, *hyper)  # the plain clip, its own norm
+        torch.cuda.synchronize()
+        check(same([got[0], got[2], got[3]], [want[0], want[2], want[3]]),
+              f"clip_adamw_step {name}: not the plain step of the gradients its norm clips")
+        exact = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in want[1])))
+        norm_rel_err = abs(float(norm) - exact) / exact
+        plain_rel_err = abs(float(plain_norm) - exact) / exact
+        check(norm_rel_err <= CLIP_NORM_RTOL,
+              f"clip_adamw_step {name}: norm {float(norm)} is {norm_rel_err:.3g} off the fp64 norm {exact}")
+        max_abs_err = max(float((a - b).abs().max()) for i in (0, 2, 3) for a, b in zip(got[i], own[i]))
+        check(max_abs_err <= TOL, f"clip_adamw_step {name}: {max_abs_err:.3g} off the plain version with clipping on")
+
+        sets = [draw(shapes, 1.0) for _ in range(CLIP_ADAMW_COLD_SETS)]
+        ms = cuda_ms([lambda: clip_adamw_step(*sets[0], adam, max_norm, *hyper)], 200)
+        ms_cold = cuda_ms([lambda s=s: clip_adamw_step(*s, adam, max_norm, *hyper) for s in sets],
+                          10 * CLIP_ADAMW_COLD_SETS)
+        flat = [torch.empty(7 * n // 2, device=dev) for _ in range(2 * CLIP_ADAMW_COLD_SETS)]  # 14n B each way
+        same_bytes_ms = cuda_ms([lambda k=k: flat[2 * k + 1].copy_(flat[2 * k]) for k in range(CLIP_ADAMW_COLD_SETS)],
+                                10 * CLIP_ADAMW_COLD_SETS)
+        plain_ms = cuda_ms([lambda: clip_adamw_step_plain(*sets[0], adam, max_norm, *hyper)], 20)
+        plain_nodes = capture_graph(lambda: clip_adamw_step_plain(*sets[0], adam, max_norm, *hyper), dev)[2]
+        nbytes = 28 * n  # g, p, m, v read once and p, m, v written once, fp32
+        flops = 16 * n  # the square, the clip's two, AdamW's ~13 an element
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOPS
+        out[name] = dict(tensors=len(shapes), elements=n, max_abs_err=max_abs_err, norm_rel_err=norm_rel_err,
+                         plain_norm_rel_err=plain_rel_err,
+                         ms=ms, ms_cold=ms_cold, same_bytes_ms=same_bytes_ms, plain_ms=plain_ms,
+                         plain_kernel_nodes=plain_nodes, kernel_nodes=2, bound_ms=max(bytes_ms, ops_ms),
+                         bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes, flops=flops)
+        del sets, flat
+    critic = out["critic"]
+    return dict(name="clip_adamw_step", max_abs_err=max(o["max_abs_err"] for o in out.values()), deterministic=True,
+                shapes=out,
+                **{k: critic[k] for k in ("ms", "ms_cold", "same_bytes_ms", "plain_ms", "bound_ms", "bound_by")},
+                library_ms=None)
+
+
 def reference_phase(dev) -> dict:
     """Two PQL-D iterations at a small size on the card and on the CPU, from
     the same initial state (drawn on the CPU from the seed) with the same
@@ -762,6 +856,9 @@ def main_path(dev, smi: str) -> dict:
             check(bool(torch.isfinite(getattr(st, name).mean())), f"{name} mean ({route})")
     check(launches["c51_td_target"] == 8 * iters,
           f"c51_td_target launched {launches['c51_td_target']} times in {iters} iterations")
+    # two routes, 12 updates an iteration of two launches each, but each optimizer's first (``opt.step()``)
+    check(launches["clip_adamw_step"] == 2 * 2 * (12 * iters - 2),
+          f"clip_adamw_step launched {launches['clip_adamw_step']} times in {iters} iterations of two routes")
 
     # device time by kernel over a short window (torch.profiler; CUPTI)
     from torch.autograd import DeviceType
@@ -1193,6 +1290,8 @@ def rigid_main_path(dev, smi: str, argv: list[str], warm_iters: int, blocks: int
     if cfg.algo.distl and cfg.algo.use_pallas:
         check(launches["c51_td_target"] == 8 * iters,
               f"c51_td_target launched {launches['c51_td_target']} times in {iters} iterations of {label}")
+    check(launches["clip_adamw_step"] == 2 * (12 * iters - 2),
+          f"clip_adamw_step launched {launches['clip_adamw_step']} times in {iters} iterations of {label}")
 
     rows = sorted(prof.key_averages(), key=lambda r: -_self_device_us(r))
     kernel_rows = [r for r in rows if r.device_type == DeviceType.CUDA
@@ -3133,12 +3232,15 @@ def graph_cost(fn, reps: int = LEGACY_REPS) -> dict:
 
 def _branch_spies(counts: dict):
     """Patches of the port's contact cores that count, per branch, the pairs
-    that took it (torch ops on the inputs; eager calls only)."""
+    that took it (torch ops on the inputs; eager calls only: a trace for the
+    hand's generated kernel, whose inputs are symbols, passes straight to the
+    core)."""
     from unittest import mock
 
     import torch
     from pql_tpu_torch.physics import contact as tc
     from pql_tpu_torch.physics import scalar_algebra as sa
+    from pql_tpu_torch.physics.codegen import Sym
 
     def add(name, mask):
         counts[name] = counts.get(name, 0) + int(mask.sum())
@@ -3146,6 +3248,8 @@ def _branch_spies(counts: dict):
     viscous_core, anchored_core, in_box = tc._contact_force_s, tc._anchored_force_s, tc._sphere_in_box_s
 
     def viscous(depth, normal, vel, kp, kd, mu, cap, ref):
+        if any(isinstance(x, Sym) for x in (depth, *normal, *vel)):
+            return viscous_core(depth, normal, vel, kp, kd, mu, cap, ref)
         d = tc._col(depth, ref)
         vn = sa.v3_dot(vel, normal)
         raw = kp * d - kd * vn
@@ -3160,6 +3264,8 @@ def _branch_spies(counts: dict):
         return viscous_core(depth, normal, vel, kp, kd, mu, cap, ref)
 
     def anchored(depth, normal, vel, dx, engaged, pp):
+        if any(isinstance(x, Sym) for x in (depth, *normal, *vel)):
+            return anchored_core(depth, normal, vel, dx, engaged, pp)
         force, dxt_new, active = anchored_core(depth, normal, vel, dx, engaged, pp)
         act, eng = active > 0.5, engaged > 0.5
         moved = sa.v3_norm(sa.v3_sub(dxt_new, sa.v3_sub(dx, sa.v3_scale(normal, sa.v3_dot(dx, normal)))))
@@ -3170,6 +3276,8 @@ def _branch_spies(counts: dict):
         return force, dxt_new, active
 
     def sphere_in_box(local, half, radius):
+        if any(isinstance(x, Sym) for x in local):
+            return in_box(local, half, radius)
         add("sphere_inside_box", (torch.abs(local[0]) < half[0]) & (torch.abs(local[1]) < half[1])
             & (torch.abs(local[2]) < half[2]))
         return in_box(local, half, radius)
@@ -3580,14 +3688,25 @@ def main(argv: list[str]) -> int:
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
         return 0
-    check(not argv, f"unknown arguments {argv} (none, --entry or --hand)")
+    if argv == ["--clip-adamw"]:
+        t0 = time.perf_counter()
+        built = kernels.build_source(kernels.CSRC / "clip_adamw.cu")
+        emit(dict(phase="build", seconds=time.perf_counter() - t0, sources={"clip_adamw": built}))
+        tail, s = timed(check_clip_adamw, dev)
+        emit(dict(phase="kernel_check", card=smi, wall_s=s, kernels=[tail]))
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+        return 0
+    check(not argv, f"unknown arguments {argv} (none, --entry, --hand or --clip-adamw)")
 
     t0 = time.perf_counter()
     built = kernels.build_kernels()
     emit(dict(phase="build", seconds=time.perf_counter() - t0, sources=built))
 
     c51, s = timed(check_c51, dev)
-    checks = [c51]
+    tail, s_tail = timed(check_clip_adamw, dev)
+    checks = [c51, tail]
+    s += s_tail
     emit(dict(phase="kernel_check", card=smi, wall_s=s, kernels=checks))
     ref, s = timed(reference_phase, dev)
     emit(dict(phase="reference", wall_s=s, **ref))

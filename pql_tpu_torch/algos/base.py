@@ -11,9 +11,10 @@ The off-policy baselines also share the episode statistics wired to the
 task's info keys (``make_stats``), the exploration action, the rollout and
 the actor-critic construction.
 
-PQL's learner phases replay as CUDA graphs on a card (``PhaseGraphs``); in
-a graph an AdamW step is ``adamw_graph_step``, the default step with its
-per-step scalars read from the device.
+PQL's updates take their clip and AdamW step (but an optimizer's first)
+through ``kernels.clip_adamw_step``, the default step with its per-step
+scalars read from the device, a kernel pair on a card; there its learner
+phases replay as CUDA graphs (``PhaseGraphs``).
 """
 
 from __future__ import annotations
@@ -219,10 +220,8 @@ def rollout(env: VecEnv, cfg, state, action_fn, draws: dict, horizon: int,
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
     """optax.clip_by_global_norm in place: g ← g / norm · max where
     norm ≥ max, unchanged otherwise. Sync-free on the device."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    keep = norm < max_norm
-    for g in grads:
-        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    for g, c in zip(grads, kernels.clip_by_global_norm(grads, max_norm)[0]):
+        g.copy_(c)
 
 
 def optimizer_step(opt: torch.optim.Optimizer, params: list[torch.Tensor],
@@ -230,15 +229,25 @@ def optimizer_step(opt: torch.optim.Optimizer, params: list[torch.Tensor],
                    adam: torch.Tensor | None = None) -> None:
     """``reduce(grads)`` in place if given (PQL's mean over the ranks), clip
     (if max_grad_norm is set), then one AdamW step with ``grads``: ``opt.step()``,
-    or with ``adam`` (a row of ``adamw_scalars``) the same step as a CUDA
-    graph can hold it (``adamw_graph_step``)."""
+    or with ``adam`` (a row of ``adamw_scalars``) the kernel pair
+    ``kernels.clip_adamw_step``, which a CUDA graph can hold. An optimizer's
+    first step is ``opt.step()`` all the same: it makes the optimizer's state
+    as ``torch.optim.AdamW`` makes it, and whoever wraps ``opt.step`` sees it."""
     if reduce is not None:
         reduce(grads)
+    # An optimizer's first step stays ``opt.step()``: torch.optim.AdamW makes its state there, and the
+    # benchmark's first-gradient recorder (benchmark/reference/recording.py) wraps ``opt.step`` to read it.
+    # Once the recorder reads the first moments without that wrap, the state can be made eagerly and
+    # every step taken by the kernel pair, without this branch.
+    if adam is not None and step_count(opt) > 0:
+        group = _adamw_group(opt)
+        state = [opt.state[p] for p in params]
+        kernels.clip_adamw_step(params, grads, [s["exp_avg"] for s in state], [s["exp_avg_sq"] for s in state],
+                                adam, max_grad_norm, group["lr"], group["betas"], group["eps"],
+                                group["weight_decay"])
+        return
     if max_grad_norm is not None:
         clip_by_global_norm_(grads, max_grad_norm)
-    if adam is not None:
-        adamw_graph_step(opt, params, grads, adam)
-        return
     for p, g in zip(params, grads):
         p.grad = g
     opt.step()
@@ -266,12 +275,18 @@ def target_policy_actions(cfg, actor: nn.Module, next_obs: torch.Tensor, normal:
 
 def _adamw_group(opt: torch.optim.Optimizer) -> dict:
     """The one parameter group of a default ``build_optimizer`` AdamW, the
-    form ``adamw_graph_step`` repeats; any other is refused."""
+    form ``kernels.clip_adamw_step`` repeats; any other is refused."""
     (group,) = opt.param_groups
     form = {k: group.get(k) for k in ("amsgrad", "maximize", "capturable", "fused", "differentiable")}
     if not isinstance(opt, torch.optim.AdamW) or any(form.values()) or group.get("foreach") is False:
         raise ValueError(f"a graphed step repeats the default foreach AdamW, not {type(opt).__name__} {form}")
     return group
+
+
+def step_count(opt: torch.optim.AdamW) -> float:
+    """The optimizer's steps so far (every parameter's count is the same; 0
+    before its first step)."""
+    return float(opt.state.get(opt.param_groups[0]["params"][0], {}).get("step", 0.0))
 
 
 def adamw_scalars(opt: torch.optim.AdamW, steps: int, device: torch.device) -> torch.Tensor:
@@ -281,35 +296,10 @@ def adamw_scalars(opt: torch.optim.AdamW, steps: int, device: torch.device) -> t
     out, rounded to float32 as its kernels take them; copied without a wait."""
     group = _adamw_group(opt)
     lr, (b1, b2) = group["lr"], group["betas"]
-    t0 = float(opt.state[group["params"][0]]["step"])  # every parameter's count is the same
+    t0 = step_count(opt)
     rows = [((lr / (1 - b1 ** t)) * -1, (1 - b2 ** t) ** 0.5) for t in (t0 + k for k in range(1, steps + 1))]
     host = torch.tensor(rows, dtype=torch.float32)
     return (host.pin_memory() if device.type == "cuda" else host).to(device, non_blocking=True)
-
-
-@torch.no_grad()
-def adamw_graph_step(opt: torch.optim.AdamW, params: list[torch.Tensor], grads: list[torch.Tensor],
-                     adam: torch.Tensor) -> None:
-    """One step of the default (foreach) ``torch.optim.AdamW`` on CUDA, op for
-    op, with its two per-step scalars read from ``adam`` = (step size,
-    √(1 − β2^t)) on the device where it takes Python floats: a step a CUDA
-    graph can hold. On an H100 it equals ``opt.step()`` bit for bit (the
-    card's tests); AdamW's own capturable form does not (it takes the bias
-    corrections in float32 and divides in another order). The step counts
-    are the caller's to advance."""
-    group = _adamw_group(opt)
-    lr, (b1, b2), eps, wd = group["lr"], group["betas"], group["eps"], group["weight_decay"]
-    state = [opt.state[p] for p in params]
-    exp_avgs, exp_avg_sqs = [s["exp_avg"] for s in state], [s["exp_avg_sq"] for s in state]
-    torch._foreach_mul_(params, 1 - lr * wd)
-    torch._foreach_lerp_(exp_avgs, grads, 1 - b1)
-    torch._foreach_mul_(exp_avg_sqs, b2)
-    torch._foreach_addcmul_(exp_avg_sqs, grads, grads, 1 - b2)
-    denom = torch._foreach_sqrt(exp_avg_sqs)
-    torch._foreach_div_(denom, adam[1])
-    torch._foreach_add_(denom, eps)
-    # p + step·(m / denom) in one rounding, as the foreach addcdiv with a host scalar
-    torch._foreach_addcmul_(params, torch._foreach_div(exp_avgs, denom), [adam[0]] * len(params))
 
 
 def capture_graph(fn, device: torch.device):
@@ -322,6 +312,14 @@ def capture_graph(fn, device: torch.device):
     return graph, out, graph_kernel_nodes(graph)[0]
 
 
+def _take_back(counts: dict[str, int], before: dict[str, int]) -> dict[str, int]:
+    """What ``counts`` gained since it read ``before``, taken back out of it."""
+    made = {k: n - before.get(k, 0) for k, n in counts.items() if n != before.get(k, 0)}
+    counts.clear()
+    counts.update(before)
+    return made
+
+
 class PhaseGraph:
     """One learner phase ``fn(*inputs) -> loss`` captured as a CUDA graph.
     ``inputs`` are copied into static buffers before each replay; everything
@@ -331,16 +329,17 @@ class PhaseGraph:
     overwrites the graph's own.
 
     The capture runs the phase's Python but none of its kernels, so the
-    launch counts the kernels' wrappers made during it (``kernels.LAUNCHES``)
-    are taken back and made by each replay instead."""
+    launch counts the kernels' wrappers made during it (``kernels.LAUNCHES``,
+    and the tracer's counters of the iteration) are taken back and made by
+    each replay instead."""
 
     def __init__(self, fn, inputs: tuple[torch.Tensor, ...]):
         self.inputs = [x.clone() for x in inputs]
-        counted = dict(kernels.LAUNCHES)
+        launched, counted = dict(kernels.LAUNCHES), dict(trace.counters())
         with trace.span("setup.learner_capture") as span:
             self.graph, self.out, self.kernels = capture_graph(lambda: fn(*self.inputs), inputs[0].device)
-        self.launches = {k: n - counted[k] for k, n in kernels.LAUNCHES.items() if n != counted[k]}
-        kernels.LAUNCHES.update(counted)
+        self.launches = _take_back(kernels.LAUNCHES, launched)
+        self.counts = _take_back(trace.counters(), counted)
         self.capture_s = span.seconds  # host seconds of the capture and instantiation (None with the tracer off)
         trace.count("learner.graph_captures")
 
@@ -354,20 +353,26 @@ class PhaseGraph:
             self.graph.replay()
         for name, n in self.launches.items():
             kernels.LAUNCHES[name] += n
+        for name, n in self.counts.items():
+            trace.count(name, n)
         trace.count("learner.graph_replays")
         trace.count("learner.graph_kernels", self.kernels)
         return self.out.clone()
 
 
 class PhaseGraphs:
-    """An agent's learner phases as CUDA graphs, one per phase and update
-    count (so every update ratio gets its own). A key's first call runs the
-    phase eagerly with ``opt.step()``, on a side stream as capture requires
-    (it is that iteration's real update); its second captures the phase
-    with ``adamw_graph_step`` in place of ``opt.step()`` and replays it, and
-    every later call replays. No update runs twice or is skipped, and a
-    replay does the eager arithmetic bit for bit. After a replay the
-    optimizer's step counts (host tensors) advance by the phase's steps.
+    """An agent's learner phases, each ``fn(*inputs, adam)`` with ``adam`` the
+    ``adamw_scalars`` of its steps, so that every update's step (after an
+    optimizer's first) is the kernel pair ``kernels.clip_adamw_step``.
+
+    With ``capture`` (a card with one rank) they run as CUDA graphs, one per
+    phase and update count (so every update ratio gets its own). A key's
+    first call runs the phase eagerly, on a side stream as capture requires
+    (it is that iteration's real update); its second captures the phase and
+    replays it, and every later call replays. No update runs twice or is
+    skipped, and a replay does the eager arithmetic bit for bit. Without
+    ``capture`` every call runs eagerly. After a phase the optimizer's step
+    counts (host tensors) stand at the steps it took.
 
     ``bound`` names the objects whose tensors the graphs read in place (the
     modules, the optimizers and their state dicts, the ring, the
@@ -380,23 +385,28 @@ class PhaseGraphs:
         self.bound: tuple = ()
 
     def run(self, phase: str, steps: int, bound: tuple, fn, inputs: tuple[torch.Tensor, ...],
-            opt: torch.optim.AdamW) -> torch.Tensor:
-        """The loss of a phase of ``steps`` steps of ``opt``: ``fn(*inputs)``
-        eagerly, ``fn(*inputs, adam)`` in its graph (``adam``: the steps'
-        ``adamw_scalars``)."""
-        if len(bound) != len(self.bound) or any(a is not b for a, b in zip(bound, self.bound)):
-            self.graphs.clear()
-            self.bound = bound
-        key = (phase, steps)
-        if key not in self.graphs:
-            self.graphs[key] = None
-            return self._eager(fn, inputs)
+            opt: torch.optim.AdamW, capture: bool = True) -> torch.Tensor:
+        """The loss of a phase of ``steps`` steps of ``opt``."""
+        t0 = step_count(opt)
         inputs = (*inputs, adamw_scalars(opt, steps, inputs[0].device))
-        graph = self.graphs[key]
-        if graph is None:
-            graph = self.graphs[key] = PhaseGraph(fn, inputs)
-        loss = graph(*inputs)
-        torch._foreach_add_([opt.state[p]["step"] for p in opt.param_groups[0]["params"]], float(steps))
+        if not capture:
+            loss = fn(*inputs)
+        else:
+            if len(bound) != len(self.bound) or any(a is not b for a, b in zip(bound, self.bound)):
+                self.graphs.clear()
+                self.bound = bound
+            key = (phase, steps)
+            if key not in self.graphs:
+                self.graphs[key] = None
+                loss = self._eager(fn, inputs)
+            else:
+                graph = self.graphs[key]
+                if graph is None:
+                    graph = self.graphs[key] = PhaseGraph(fn, inputs)
+                loss = graph(*inputs)
+        if step_count(opt) > 0:  # (an ``opt.step`` that made no state leaves none to count)
+            counts = [opt.state[p]["step"] for p in opt.param_groups[0]["params"]]
+            torch._foreach_add_(counts, t0 + steps - step_count(opt))  # an eager first step counted its own
         return loss
 
     @staticmethod

@@ -19,7 +19,8 @@ One iteration, exactly as the JAX package's fused step orders it:
   the C51 projection with γ^nstep as min(proj(p1_t), proj(p2_t)) under
   no_grad, through the hand-written CUDA kernel ``c51_td_target`` when
   ``algo.use_pallas`` is set (its plain version on CPU tensors) and the
-  dense plain path otherwise; BCE of both heads; clip, AdamW, polyak;
+  dense plain path otherwise; BCE of both heads; clip and AdamW
+  (``clip_adamw_step``), polyak;
 - actor phase, ``max(n_critic // critic_actor_ratio, 1) × horizon``
   updates of -mean(q_min) against the post-critic-phase critic, whose
   parameters receive no gradient.
@@ -49,15 +50,18 @@ the clip and the AdamW step, and the phases' losses after them; the episode
 events are gathered before the trackers. One rank runs exactly the one-GPU
 path, without a collective.
 
-**On a card with one rank** the critic and actor phases replay as CUDA
-graphs (``base.PhaseGraphs``), one per phase and update count, where the
-eager phases are ~190 launches an update that the host issues one at a
-time: a key's first call runs eagerly, its second captures and replays.
-The graphs read the draws' row indices (worked out eagerly from the ring's
-host pointers), the smoothing normals and AdamW's two per-step scalars
-(worked out on the host as ``opt.step()`` works them out) from static
-buffers, and everything else in place; a graphed AdamW step is the default
-one op for op (``base.adamw_graph_step``), so a replay equals the eager
+Each update's clip and AdamW step, but an optimizer's first (``opt.step()``,
+which makes its state), is ``kernels.clip_adamw_step``: on a card one
+launch each of a hand-written kernel pair, on the CPU its plain version.
+It repeats the default AdamW step's roundings and reads its two per-step
+scalars (worked out on the host as ``opt.step()`` works them out) from the
+device. **On a card with one rank** the critic and actor phases replay as
+CUDA graphs (``base.PhaseGraphs``), one per phase and update count, where
+the eager phases are ~85-115 launches an update that the host issues one
+at a time: a key's first call runs eagerly, its second captures and
+replays. The graphs read the draws' row indices (worked out eagerly from
+the ring's host pointers), the smoothing normals and the AdamW scalars from
+static buffers, and everything else in place, so a replay equals the eager
 phase bit for bit. The CPU and several ranks run the phases eagerly.
 """
 
@@ -74,6 +78,7 @@ from torch import nn
 from pql_tpu_torch.algos import base
 from pql_tpu_torch.envs import make_task
 from pql_tpu_torch.envs.base import VecEnv, VecEnvState, handle_timeout
+from pql_tpu_torch.ops import kernels
 from pql_tpu_torch.ops.distributional import binary_cross_entropy
 from pql_tpu_torch.ops.kernels import c51_td_target, c51_td_target_plain
 from pql_tpu_torch.ops.noise import add_mixed_normal_noise, add_normal_noise
@@ -128,6 +133,8 @@ class PQL(base.ActorCriticAgent):
         self.device = torch.device(device)
         self.mesh = make_mesh(cfg.num_devices, cfg.mesh_axis)
         self.num_envs = cfg.num_envs  # global
+        if self.device.type == "cuda":
+            kernels.prebuild("clip_adamw")  # its nvcc build overlaps the rest of the set-up
         self.e_local = self.mesh.local(cfg.num_envs, "num_envs")
         self.batch_local = self.mesh.local(cfg.algo.batch_size, "batch_size")
         self.env = VecEnv(make_task(cfg.task), self.e_local)
@@ -141,7 +148,7 @@ class PQL(base.ActorCriticAgent):
         self._target_copy: nn.Module | None = None
         # On a card with one rank the learner phases replay as CUDA graphs
         # (``base.PhaseGraphs``); a test may set ``capture_phases`` False to
-        # run the same arithmetic eagerly.
+        # run the same arithmetic eagerly (on a card, the same kernels).
         self.capture_phases = self.device.type == "cuda" and self.mesh.size == 1
         self._graphs = base.PhaseGraphs()
 
@@ -418,15 +425,15 @@ class PQL(base.ActorCriticAgent):
         return (replay.split(replay.rows(i), fields) for i in index)
 
     def _learn(self, state: PQLState, phase: str, updates, opt, index: torch.Tensor, *inputs: torch.Tensor):
-        """``updates(state, index, *inputs)``, a phase's device work, which
-        steps ``opt`` once an update: eagerly, or through the phase's CUDA
-        graph for its update count."""
-        if not self.capture_phases:
-            return updates(state, index, *inputs)
+        """``updates(state, index, *inputs, adam)``, a phase's device work,
+        which steps ``opt`` once an update with ``adam``, the AdamW scalars
+        of its steps (``base.PhaseGraphs``): eagerly, or where it captures
+        through the phase's CUDA graph for its update count."""
         rms = state.obs_rms
         bound = (state.actor, state.critic, state.critic_target, state.actor_opt, state.critic_opt,
                  state.actor_opt.state, state.critic_opt.state, state.replay.data, rms.mean, rms.var, rms.count)
-        return self._graphs.run(phase, index.shape[0], bound, functools.partial(updates, state), (index, *inputs), opt)
+        return self._graphs.run(phase, index.shape[0], bound, functools.partial(updates, state), (index, *inputs), opt,
+                                capture=self.capture_phases)
 
     def _critic_phase(self, state: PQLState, draws: dict) -> torch.Tensor:
         index = self._phase_index(state, draws, "critic", self.n_critic)
@@ -435,8 +442,8 @@ class PQL(base.ActorCriticAgent):
         return loss
 
     def _critic_updates(self, state: PQLState, index: torch.Tensor, target_normal: torch.Tensor,
-                        adam: torch.Tensor | None = None) -> torch.Tensor:
-        """The critic phase's updates; ``adam``: the AdamW scalars of a graph's steps."""
+                        adam: torch.Tensor) -> torch.Tensor:
+        """The critic phase's updates; ``adam``: the AdamW scalars of its steps."""
         cfg = self.cfg
         gamma_n = cfg.algo.gamma ** cfg.algo.nstep
         params = list(state.critic.parameters())
@@ -465,7 +472,7 @@ class PQL(base.ActorCriticAgent):
             else:
                 loss = torch.mean(torch.square(out1 - target)) + torch.mean(torch.square(out2 - target))
             losses.append(base.descend(state.critic_opt, params, loss, cfg.algo.max_grad_norm, self._grad_reduce(),
-                                       None if adam is None else adam[u]))
+                                       adam[u]))
             soft_update(state.critic_target, state.critic, cfg.algo.tau)
         return self._phase_loss(losses)
 
@@ -484,8 +491,8 @@ class PQL(base.ActorCriticAgent):
         state.actor_update_count += self.n_actor
         return loss
 
-    def _actor_updates(self, state: PQLState, index: torch.Tensor, adam: torch.Tensor | None = None) -> torch.Tensor:
-        """The actor phase's updates; ``adam``: the AdamW scalars of a graph's steps."""
+    def _actor_updates(self, state: PQLState, index: torch.Tensor, adam: torch.Tensor) -> torch.Tensor:
+        """The actor phase's updates; ``adam``: the AdamW scalars of its steps."""
         cfg = self.cfg
         params = list(state.actor.parameters())
         losses = []
@@ -494,7 +501,7 @@ class PQL(base.ActorCriticAgent):
             # grads w.r.t. the actor only: the critic's parameters get none
             loss = -torch.mean(state.critic.q_min(obs_n, state.actor(obs_n)))
             losses.append(base.descend(state.actor_opt, params, loss, cfg.algo.max_grad_norm, self._grad_reduce(),
-                                       None if adam is None else adam[u]))
+                                       adam[u]))
         return self._phase_loss(losses)
 
     # ------------------------------------------------------------ eval hook

@@ -48,6 +48,18 @@ emitted one statement per op (``physics/codegen.py``). It is built with
 the eager op does), one library per generated header, cached by the digest
 of the skeleton, the header and the flags. It is bound by operations, about
 1e5 a thread; one thread per env leaves ~2 warps an SM at 8,192 envs.
+
+``clip_adamw_step`` (``csrc/clip_adamw.cu``) replaces no TPU kernel (the
+JAX package's step is optax under ``jit``): it is one network's optimizer
+tail in PQL's updates, ``clip_by_global_norm`` over all of its gradients
+and one step of the default AdamW, as two launches (the squared norm's
+partials, then clip and AdamW in one pass per element) where the eager tail
+is 6·P + 11 launches for P tensors. It repeats the default foreach AdamW
+step's roundings op for op, so with the norm under the max it equals
+``opt.step()`` bit for bit; with clipping on, the norm differs in its
+last bits (its squares fused into the sum, and summed in another order).
+Bound by bytes at a size where launch latency rules: 28 bytes an element,
+11.2 MB for the critic (see the source's note).
 """
 
 from __future__ import annotations
@@ -59,6 +71,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 import weakref
 from pathlib import Path
@@ -87,6 +100,10 @@ KERNELS = {
         source="pql_tpu_torch/csrc/hand_step.cu",
         replaces=None,  # the JAX package's hand step is plain jnp under jit
     ),
+    "clip_adamw_step": dict(
+        source="pql_tpu_torch/csrc/clip_adamw.cu",
+        replaces=None,  # the JAX package's clip and AdamW are optax under jit
+    ),
 }
 GENERATED = {"hand_step"}  # sources that include a generated header, built per header
 MAX_SMEM_BYTES = 232448  # shared memory one block may use on sm_90
@@ -111,39 +128,80 @@ def _library_path(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
+def _start_build(src: Path):
+    """nvcc started on ``src`` into a temporary file beside its library."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = _library_path(src).with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, time.perf_counter()
+
+
+def _finish_build(src: Path, job) -> dict:
+    proc, tmp, t0 = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src.name} (rc {proc.returncode}):\n{log}")
+    lib = _library_path(src)
+    os.replace(tmp, lib)  # whole, where another thread or process builds the same source
+    return dict(path=str(lib), seconds=time.perf_counter() - t0, ptxas=log.strip())
+
+
+def build_source(src: Path) -> dict:
+    """Compile ``src`` unless built. Returns {path, seconds, ptxas}."""
+    lib = _library_path(src)
+    if lib.exists():
+        return dict(path=str(lib), seconds=0.0, ptxas="(already built)")
+    return _finish_build(src, _start_build(src))
+
+
 def build_kernels() -> dict[str, dict]:
     """Compile every ``csrc/*.cu`` not built yet (but those of ``GENERATED``,
     built per task by their wrapper), one nvcc per source, all started
     together. Returns {source stem: {path, seconds, ptxas}}."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     jobs, out = {}, {}
     for src in sorted(CSRC.glob("*.cu")):
         if src.stem in GENERATED:
             continue
-        lib = _library_path(src)
-        if lib.exists():
-            out[src.stem] = dict(path=str(lib), seconds=0.0, ptxas="(already built)")
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs[src.stem] = (proc, tmp, lib, time.perf_counter())
-    for stem, (proc, tmp, lib, t0) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {stem}.cu (rc {proc.returncode}):\n{log}")
-        os.replace(tmp, lib)
-        out[stem] = dict(path=str(lib), seconds=time.perf_counter() - t0, ptxas=log.strip())
+        if _library_path(src).exists():
+            out[src.stem] = dict(path=str(_library_path(src)), seconds=0.0, ptxas="(already built)")
+        else:
+            jobs[src] = _start_build(src)
+    for src, job in jobs.items():
+        out[src.stem] = _finish_build(src, job)
     return out
 
 
 @functools.cache
+def _build_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """The background builds of a run's set-up (the hand step, clip_adamw)."""
+    return concurrent.futures.ThreadPoolExecutor(max_workers=2, thread_name_prefix="kernel_build")
+
+
+# builds started ahead of the first launch: source stem -> the future of build_source
+_PENDING: dict[str, concurrent.futures.Future] = {}
+
+
+def prebuild(stem: str) -> None:
+    """Start ``csrc/<stem>.cu``'s nvcc build on a background thread, so that
+    it overlaps the rest of a run's set-up; the first launch waits for it
+    (and raises what it raised)."""
+    src = CSRC / f"{stem}.cu"
+    if stem not in _PENDING and not _library_path(src).exists():
+        _PENDING[stem] = _build_pool().submit(build_source, src)
+
+
+@functools.cache
+def _library(stem: str) -> ctypes.CDLL:
+    """``csrc/<stem>.cu``'s library, loaded once: the build ``prebuild``
+    started waited for, or built now."""
+    pending = _PENDING.pop(stem, None)
+    return ctypes.CDLL((pending.result() if pending is not None else build_source(CSRC / f"{stem}.cu"))["path"])
+
+
+@functools.cache
 def _c51_lib() -> ctypes.CDLL:
-    src = CSRC / "c51_projection.cu"
-    if not _library_path(src).exists():
-        build_kernels()
-    lib = ctypes.CDLL(str(_library_path(src)))
+    lib = _library("c51_projection")
     lib.c51_td_target.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
@@ -298,11 +356,6 @@ def build_hand_step(header: str) -> dict:
     return HAND_BUILDS[digest]
 
 
-@functools.cache
-def _build_pool() -> concurrent.futures.ThreadPoolExecutor:
-    return concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="hand_step_build")
-
-
 def prebuild_hand_step(task) -> None:
     """Trace and emit ``task``'s kernel here and start its nvcc build on a
     background thread, so that the build overlaps the rest of a run's
@@ -374,3 +427,125 @@ def hand_control_step(task, state: dict[str, torch.Tensor], action: torch.Tensor
     trace.count("env.fused_steps")
     next_state = dict(q=outs[0], qd=outs[1], target=outs[3], contact=outs[2])
     return next_state, reward, terminated, {"success": success}
+
+
+# -------------------------------------------------------------- clip_adamw_step
+
+CLIP_ADAMW_MAX_TENSORS = 64  # the tensors one launch takes (kMaxTensors in the source)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """optax.clip_by_global_norm: (the gradients, each g / norm · max where
+    norm ≥ max and g otherwise; the global norm). Sync-free on the device."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm * max_norm) for g in grads], norm
+
+
+@torch.no_grad()
+def clip_adamw_step_plain(params, grads, exp_avgs, exp_avg_sqs, adam, max_norm, lr, betas, eps,
+                          weight_decay) -> torch.Tensor:
+    """Plain PyTorch version: ``clip_by_global_norm`` (``max_norm`` None: no
+    clip), then the default foreach ``torch.optim.AdamW`` step op for op, with
+    its two per-step scalars read from ``adam`` on the device where it takes
+    Python floats (so a CUDA graph can hold it); the gradients are left as
+    they are. Returns the gradients' global norm."""
+    if max_norm is None:
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    else:
+        grads, norm = clip_by_global_norm(grads, max_norm)
+    b1, b2 = betas
+    torch._foreach_mul_(params, 1 - lr * weight_decay)
+    torch._foreach_lerp_(exp_avgs, grads, 1 - b1)
+    torch._foreach_mul_(exp_avg_sqs, b2)
+    torch._foreach_addcmul_(exp_avg_sqs, grads, grads, 1 - b2)
+    denom = torch._foreach_sqrt(exp_avg_sqs)
+    torch._foreach_div_(denom, adam[1])
+    torch._foreach_add_(denom, eps)
+    # p + step·(m / denom) in one rounding, as the foreach addcdiv with a host scalar
+    torch._foreach_addcmul_(params, torch._foreach_div(exp_avgs, denom), [adam[0]] * len(params))
+    return norm
+
+
+def _check_clip_adamw_inputs(params, grads, exp_avgs, exp_avg_sqs, adam) -> None:
+    lists = dict(params=params, grads=grads, exp_avgs=exp_avgs, exp_avg_sqs=exp_avg_sqs)
+    if not 1 <= len(params) <= CLIP_ADAMW_MAX_TENSORS:
+        raise ValueError(f"clip_adamw_step: 1 to {CLIP_ADAMW_MAX_TENSORS} parameters, got {len(params)}")
+    if any(len(ts) != len(params) for ts in lists.values()):
+        raise ValueError(f"clip_adamw_step: list lengths differ: { {k: len(ts) for k, ts in lists.items()} }")
+    device = params[0].device
+    for name, ts in lists.items():
+        for i, t in enumerate(ts):
+            if t.dtype != torch.float32:
+                raise TypeError(f"clip_adamw_step: {name}[{i}] must be float32, got {t.dtype}")
+            if t.device != device:
+                raise ValueError(f"clip_adamw_step: {name}[{i}] is on {t.device}, params[0] on {device}")
+            if t.shape != params[i].shape:
+                raise ValueError(f"clip_adamw_step: {name}[{i}] has shape {tuple(t.shape)}, "
+                                 f"params[{i}] {tuple(params[i].shape)}")
+    if adam.dtype != torch.float32 or adam.shape != (2,) or adam.device != device:
+        raise ValueError(f"clip_adamw_step: adam must be float32 [2] on {device}, "
+                         f"got {adam.dtype} {list(adam.shape)} on {adam.device}")
+
+
+@functools.cache
+def _clip_adamw_lib() -> ctypes.CDLL:
+    lib = _library("clip_adamw")
+    lib.clip_adamw_blocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.clip_adamw_blocks.restype = ctypes.c_int
+    lib.clip_adamw_step.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                                           ctypes.c_float, ctypes.c_int] + [ctypes.c_float] * 5 + [
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.clip_adamw_step.restype = ctypes.c_int
+    return lib
+
+
+def clip_adamw_step(
+    params: list[torch.Tensor],  # float32, updated in place
+    grads: list[torch.Tensor],  # float32, as params; read only
+    exp_avgs: list[torch.Tensor],  # AdamW's moments, as params; updated in place
+    exp_avg_sqs: list[torch.Tensor],
+    adam: torch.Tensor,  # [2] float32: the step size −lr/(1 − β1^t) and √(1 − β2^t)
+    max_norm: float | None,  # None: no clip
+    lr: float,
+    betas: tuple[float, float],
+    eps: float,
+    weight_decay: float,
+) -> torch.Tensor:
+    """Clip ``grads`` by their global norm and take one AdamW step of
+    ``params`` with them; returns the global norm (0-d). On a CUDA device
+    one launch each of the pair's two kernels, or an error; the plain
+    version on the CPU."""
+    _check_clip_adamw_inputs(params, grads, exp_avgs, exp_avg_sqs, adam)
+    device = params[0].device
+    args = (params, grads, exp_avgs, exp_avg_sqs, adam, max_norm, lr, betas, eps, weight_decay)
+    if device.type == "cpu":
+        return clip_adamw_step_plain(*args)
+    if device.type != "cuda":
+        raise ValueError(f"clip_adamw_step: unsupported device {device}")
+    lists = (grads, params, exp_avgs, exp_avg_sqs)
+    for name, ts in zip(("grads", "params", "exp_avgs", "exp_avg_sqs", "adam"), (*lists, [adam])):
+        for i, t in enumerate(ts):
+            if not t.is_contiguous():
+                raise ValueError(f"clip_adamw_step: {name}[{i}] must be contiguous")
+    lib = _clip_adamw_lib()
+    count = len(params)
+    ptrs = [(ctypes.c_void_p * count)(*(t.data_ptr() for t in ts)) for ts in lists]
+    sizes = (ctypes.c_int64 * count)(*(t.numel() for t in params))
+    blocks = lib.clip_adamw_blocks(sizes, count)
+    if blocks < 0:
+        raise ValueError(f"clip_adamw_step: sizes {list(sizes)} out of the kernel's range")
+    partial = torch.empty(blocks, dtype=torch.float32, device=device)
+    norm = torch.empty((), dtype=torch.float32, device=device)
+    b1, b2 = betas
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.clip_adamw_step(*ptrs, sizes, count, partial.data_ptr(), adam.data_ptr(),
+                                  float("inf") if max_norm is None else float(max_norm), int(max_norm is not None),
+                                  1 - lr * weight_decay, 1 - b1, b2, 1 - b2, eps, norm.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"clip_adamw_step: kernel launch failed with cudaError {err}")
+    LAUNCHES["clip_adamw_step"] += 2
+    trace.count("learner.clip_adamw_steps", 2)
+    return norm

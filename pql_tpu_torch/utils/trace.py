@@ -7,6 +7,7 @@ iteration, and the device's clock at the top-level ones.
     with trace.span("env.sim"):      # a layer boundary
         ...
     trace.count("env.graph_replays")  # a counter of the current iteration
+    trace.counters()                 # the current iteration's counters
     trace.recent()                   # the last RING iterations' records
 
 A span records its name, its parent span, the iteration it belongs to and
@@ -236,6 +237,11 @@ def count(name: str, n: int = 1) -> None:
     if _on:
         counters = _tracer.record.counters
         counters[name] = counters.get(name, 0) + n
+
+
+def counters() -> dict[str, int]:
+    """The current iteration's counters: the record's own dict."""
+    return _tracer.record.counters
 
 
 def iteration(device: torch.device | str | None = None) -> None:

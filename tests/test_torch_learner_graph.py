@@ -7,16 +7,18 @@ one buffer the capture returned, as a graph's replay does) takes the path a
 card takes: the keys per phase and update count, the first call eager and
 the second captured, the static inputs, the clones out, the graphs dropped
 where a checkpoint load gives the optimizers new state, the kernels' launch
-counts, AdamW's per-step scalars. The CPU, several ranks and DDPGV stay
-eager with the default AdamW.
+counts, AdamW's per-step scalars. The CPU and several ranks stay eager, and
+DDPGV keeps the default AdamW.
 
-A graphed AdamW step (``base.adamw_graph_step``) repeats the default
-foreach step op for op but for its last op, an addcmul where the default
-takes an addcdiv with a host scalar: on the card the two round alike (bit
-for bit, the ``gpu`` tests), on the CPU not always, so the CPU tests hold
+Every PQL update but each optimizer's first steps through
+``kernels.clip_adamw_step``, eager or graphed: on the CPU its plain
+version, the default foreach step op for op but for its last op, an
+addcmul where the default takes an addcdiv with a host scalar (on the card
+the two round alike, bit for bit, the ``gpu`` tests). The CPU tests hold
 the graphed run's numbers to ``CPU_TOL`` of the eager run's (a skipped or
 doubled update moves them by ~1e-3) and its counts exactly. The ``gpu``
-tests hold the real graphs to forced-eager runs on the card bit for bit.
+tests hold the real graphs, with the kernel pair, to forced-eager runs on
+the card bit for bit.
 This file imports nothing of JAX. On the machine with the card:
 
     python -m pytest tests/test_torch_learner_graph.py -m gpu --noconftest -q
@@ -226,15 +228,24 @@ def test_captured_launches_are_counted_at_each_replay(monkeypatch):
 
     def phase(x):
         kernels.LAUNCHES["c51_td_target"] += 8  # eight launches of the projection
+        for _ in range(8):  # eight clip and AdamW steps, two launches each, as the wrapper counts them
+            kernels.LAUNCHES["clip_adamw_step"] += 2
+            trace.count("learner.clip_adamw_steps", 2)
         return x.sum()
 
     monkeypatch.setattr(base, "capture_graph", capture)
-    monkeypatch.setattr(kernels, "LAUNCHES", {**kernels.LAUNCHES, "c51_td_target": 5})
+    monkeypatch.setattr(kernels, "LAUNCHES", {**kernels.LAUNCHES, "c51_td_target": 5, "clip_adamw_step": 1})
+    trace.reset()
+    trace.iteration()
     graph = base.PhaseGraph(phase, (torch.ones(3),))
-    assert kernels.LAUNCHES["c51_td_target"] == 5 and graph.launches == {"c51_td_target": 8}
+    assert kernels.LAUNCHES["c51_td_target"] == 5 and kernels.LAUNCHES["clip_adamw_step"] == 1
+    assert graph.launches == {"c51_td_target": 8, "clip_adamw_step": 16}
+    assert "learner.clip_adamw_steps" not in trace.counters() and graph.counts == {"learner.clip_adamw_steps": 16}
     for _ in range(3):
         graph(torch.ones(3))
-    assert kernels.LAUNCHES["c51_td_target"] == 5 + 3 * 8
+    assert kernels.LAUNCHES["c51_td_target"] == 5 + 3 * 8 and kernels.LAUNCHES["clip_adamw_step"] == 1 + 3 * 16
+    assert trace.counters()["learner.clip_adamw_steps"] == 3 * 16
+    trace.reset()
     with pytest.raises(ValueError, match="captured as"):
         graph(torch.ones(4))
 
@@ -258,8 +269,9 @@ def test_adamw_scalars_are_the_default_steps():
 
 def test_cpu_several_ranks_and_ddpgv_stay_eager(monkeypatch):
     """The capture is for one rank on a card: the CPU agent runs its phases
-    eagerly with the default AdamW and makes no graph; a card agent of two
-    ranks does not capture; DDPGV keeps the default AdamW."""
+    eagerly and makes no graph, its optimizers the default AdamW; a card
+    agent of two ranks does not capture; DDPGV keeps the default AdamW (and
+    never calls ``kernels.clip_adamw_step``: test_torch_clip_adamw.py)."""
     agent, state = _agent(_cfg(), capture=False)
     assert PQL(_cfg(), device="cpu").capture_phases is False
     for _ in range(2):
@@ -298,9 +310,10 @@ def _hand_cfg(algo):
 @pytest.mark.gpu
 def test_adamw_graph_step_in_a_graph_equals_opt_step_on_card(cuda):
     """The critic's parameter shapes, 30 steps of random gradients over ten
-    decades: the default AdamW's ``opt.step()`` against ``adamw_graph_step``
-    replayed from one CUDA graph with the host's scalars, bit for bit in the
-    parameters and both moments."""
+    decades: the default AdamW's ``opt.step()`` against the plain version of
+    ``kernels.clip_adamw_step`` (no clip) replayed from one CUDA graph with
+    the host's scalars, bit for bit in the parameters and both moments (the
+    kernel pair itself: test_torch_clip_adamw.py)."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     shapes = [(512, 66), (512,), (256, 512), (256,), (128, 256), (128,), (1, 128), (1,)] * 2
     ref = [torch.nn.Parameter(torch.randn(s, generator=gen, device=cuda)) for s in shapes]
@@ -314,7 +327,10 @@ def test_adamw_graph_step_in_a_graph_equals_opt_step_on_card(cuda):
     for p, g in zip(ref, grads):
         p.grad = g.clone()
     opt_ref.step()
-    graph, _, _ = base.capture_graph(lambda: base.adamw_graph_step(opt, mine, grads, adam), cuda)
+    group = opt.param_groups[0]
+    moments = [[opt.state[p][k] for p in mine] for k in ("exp_avg", "exp_avg_sq")]
+    graph, _, _ = base.capture_graph(lambda: kernels.clip_adamw_step_plain(
+        mine, grads, *moments, adam, None, group["lr"], group["betas"], group["eps"], group["weight_decay"]), cuda)
     for _ in range(30):
         scale = 10.0 ** torch.randint(-9, 1, (len(shapes),), generator=gen, device=cuda)
         new = [torch.randn(s, generator=gen, device=cuda) * scale[i] for i, s in enumerate(shapes)]
@@ -337,8 +353,9 @@ def test_graphed_hand_equals_forced_eager_on_card(cuda, algo):
     """PQL and PQL-D AllegroHand at 256 envs, batch 512: graphed against
     forced-eager over three iterations at 8:2, three after
     ``set_ratios(16, 2)`` and one back at 8:2; losses, parameters, targets
-    and optimizer state bitwise; ``c51_td_target`` launches counted through
-    the replays."""
+    and optimizer state bitwise; ``c51_td_target`` and ``clip_adamw_step``
+    launches counted through the replays (the latter two an update, but
+    each optimizer's first)."""
     runs = {}
     for capture in (False, True):
         kernels.reset_launches()
@@ -346,14 +363,17 @@ def test_graphed_hand_equals_forced_eager_on_card(cuda, algo):
         schedule = [(8, 2)] * 3 + [(16, 2)] * 3 + [(8, 2)]
         state, losses = _run(agent, state, schedule)
         torch.cuda.synchronize()
-        runs[capture] = (agent, state, [tuple(map(float, x)) for x in losses], kernels.LAUNCHES["c51_td_target"])
-    (eager, s_e, l_e, c51_e), (graphed, s_g, l_g, c51_g) = runs[False], runs[True]
+        runs[capture] = (agent, state, [tuple(map(float, x)) for x in losses], kernels.LAUNCHES["c51_td_target"],
+                         kernels.LAUNCHES["clip_adamw_step"])
+    (eager, s_e, l_e, c51_e, tail_e), (graphed, s_g, l_g, c51_g, tail_g) = runs[False], runs[True]
     assert l_g == l_e
     _assert_same(s_e, s_g, exact=True)
     assert eager._graphs.graphs == {}
     assert set(graphed._graphs.graphs) == {("critic", 8), ("actor", 4), ("critic", 16), ("actor", 8)}
     assert all(g is not None and g.kernels > 0 for g in graphed._graphs.graphs.values())
     assert c51_g == c51_e == (8 * 4 + 16 * 3 if algo == "pql_d" else 0)
+    updates = (8 * 4 + 16 * 3) + (4 * 4 + 8 * 3)  # critic, actor
+    assert tail_g == tail_e == 2 * (updates - 2)
 
 
 @pytest.mark.gpu

@@ -228,7 +228,7 @@ def test_graphed_step_counts_captures_replays_and_kernel_nodes(monkeypatch):
     iters = _iterations(trace.recent())
     assert [r.counters for r in iters] == [{"env.graph_replays": 1, "env.graph_kernels": 1234}] * 2
     assert [s.name for s in iters[0].spans] == ["env.sim", "env.graph_in", "env.graph_replay", "env.graph_out"]
-    assert report.graph_kernels_per_iter(iters) == 1234
+    assert report.counter_per_iter(iters, "env.graph_kernels") == 1234
     trace.enable(False)
     assert rigid.GraphedStep(fn, {"x": torch.zeros(4, 2)}, torch.ones(4, 2)).build_s == dict(
         warmup=None, capture=None, instantiate=None)
@@ -273,7 +273,7 @@ def test_learner_graphs_count_captures_replays_and_kernel_nodes(monkeypatch):
     assert [nested(r) for r in iters] == [{}, {k: ["setup.learner_capture", *v] for k, v in shape.items()}, shape]
     replayed = {"learner.graph_replays": 2, "learner.graph_kernels": 2 * 321}
     assert [r.counters for r in iters] == [{}, {"learner.graph_captures": 2, **replayed}, replayed]
-    assert report.graph_kernels_per_iter(iters[1:], "learner.graph_kernels") == 2 * 321
+    assert report.counter_per_iter(iters[1:], "learner.graph_kernels") == 2 * 321
 
 
 class _FakeEvent:
@@ -461,7 +461,7 @@ def test_readers_take_the_four_iterations_before_the_last_unprofiled_one():
     assert idle["replay"] == pytest.approx(3 - 0)  # no device record: busy 0
     assert idle["iteration"] == pytest.approx(statistics.median([152, 153, 154, 155]) - 147 - 1)
     assert report.period_ms(rows) == pytest.approx(153.5)
-    assert report.graph_kernels_per_iter(rows) == 99_000
+    assert report.counter_per_iter(rows, "env.graph_kernels") == 99_000
     assert report.hostring_host_ms(rows) is None  # PQL has no host ring
     held = report.closure(idle, 153.5, 100 * sum(idle.values()) / 150.0, 150.0)
     assert held["idle_held"] and held["period_held"]
@@ -474,7 +474,7 @@ def test_readers_return_none_without_a_device_clock():
     rows = [_pql_record(i, clock=False) for i in range(4)]
     s = tracing.Summary(iters=3, device_s_by_layer={"env": 0.3})
     assert report.idle_ms(rows, s) is None and report.period_ms(rows) is None
-    assert report.idle_ms([], s) is None and report.graph_kernels_per_iter([]) is None
+    assert report.idle_ms([], s) is None and report.counter_per_iter([], "env.graph_kernels") is None
 
 
 def test_operator_log_takes_closed_unprofiled_iterations():
@@ -501,7 +501,8 @@ def test_device_segments_tile_the_iteration_on_the_card():
     spans lie in order inside its period, the layers' segments and the
     ``iteration`` rest sum to it, and the graph counters match libcuda's
     count of the captured step and of the learner's two phase graphs
-    (eager in the first iteration, captured in the second)."""
+    (eager in the first iteration, captured in the second), beside the
+    clip and AdamW pair's launches, counted through the replays."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the device clock is CUDA events")
     from pql_tpu_torch.algos.base import set_precision
@@ -525,4 +526,6 @@ def test_device_segments_tile_the_iteration_on_the_card():
         assert sum(dev.values()) == pytest.approx(rec.period_ms) and dev["iteration"] >= 0
         replayed = {} if rec.iteration == 0 else {"learner.graph_replays": 2, "learner.graph_kernels": learner}
         captured = {"learner.graph_captures": 2} if rec.iteration == 1 else {}
-        assert rec.counters == {"env.graph_replays": 1, "env.graph_kernels": kernels, **replayed, **captured}
+        # the clip and AdamW pair: two launches an update, but each optimizer's first (``opt.step()``)
+        tail = {"learner.clip_adamw_steps": 2 * (agent.n_critic + agent.n_actor - (2 if rec.iteration == 0 else 0))}
+        assert rec.counters == {"env.graph_replays": 1, "env.graph_kernels": kernels, **replayed, **captured, **tail}

@@ -28,7 +28,9 @@ the profiler's start). Prints one JSON line:
   nodes, on a graphed task; the learner's graphs on PQL on the card:
   ``learner_graph_kernels_per_iter`` (kernel nodes replayed an iteration,
   ``learner.graph_kernels``) against each graph's count, and each graph's
-  capture seconds (``setup.learner_capture``); ``fused_steps_per_iter``, the launches of the
+  capture seconds (``setup.learner_capture``), and ``clip_adamw_steps_per_iter``, the launches of
+  the clip and AdamW kernel pair (``learner.clip_adamw_steps``, two an update, counted through
+  the replays); ``fused_steps_per_iter``, the launches of the
   hand's fused step kernel (``env.fused_steps``), on the hand; ``hostring_host_ms`` (host ms of
   ``replay.ring_add`` and ``replay.gather``) on DDPGV;
 - the host self ms of every span and the counters of the read iterations;
@@ -103,13 +105,8 @@ def period_ms(rows: list) -> float | None:
     return None if not periods or None in periods else statistics.median(periods)
 
 
-def graph_kernels_per_iter(rows: list, counter: str = "env.graph_kernels") -> float | None:
+def counter_per_iter(rows: list, counter: str) -> float | None:
     counts = [r.counters.get(counter) for r in rows]
-    return None if not counts or None in counts else statistics.median(counts)
-
-
-def fused_steps_per_iter(rows: list) -> float | None:
-    counts = [r.counters.get("env.fused_steps") for r in rows]
     return None if not counts or None in counts else statistics.median(counts)
 
 
@@ -210,16 +207,17 @@ def measure(cell_name: str, seed: int) -> dict:
         line["closure"] = closure(idle, period, idle_share, untraced_ms)
     graphs = list(getattr(agent.env.task, "_graphs", {}).values())
     if graphs:
-        line.update(graph_kernels_per_iter=graph_kernels_per_iter(rows),
+        line.update(graph_kernels_per_iter=counter_per_iter(rows, "env.graph_kernels"),
                     graph_kernel_nodes=[graph_kernel_nodes(g.graph)[0] for g in graphs],
                     graph_replay_ms=graph_replay_ms(graphs[0].graph))
     learner = getattr(agent, "_graphs", None)  # PQL's phase graphs
     phases = {} if learner is None else {"/".join(map(str, k)): g for k, g in learner.graphs.items() if g is not None}
     if phases:
-        line.update(learner_graph_kernels_per_iter=graph_kernels_per_iter(rows, "learner.graph_kernels"),
+        line.update(learner_graph_kernels_per_iter=counter_per_iter(rows, "learner.graph_kernels"),
+                    clip_adamw_steps_per_iter=counter_per_iter(rows, "learner.clip_adamw_steps"),
                     learner_graph_kernel_nodes={k: g.kernels for k, g in phases.items()},
                     learner_capture_s={k: g.capture_s for k, g in phases.items()})
-    fused = fused_steps_per_iter(rows)
+    fused = counter_per_iter(rows, "env.fused_steps")
     if fused is not None:
         line["fused_steps_per_iter"] = fused
     hostring = hostring_host_ms(rows)
