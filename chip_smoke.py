@@ -250,7 +250,7 @@ import time
 
 import numpy as np
 
-from pql_tpu_torch.envs.rigid import graph_kernel_nodes
+from pql_tpu_torch.ops.graphs import graph_kernel_nodes
 
 MAIN_WARM_ITERS = 5  # untimed iterations of each route first
 MAIN_BLOCKS = 4  # timed blocks, alternating kernel and plain routes
@@ -547,18 +547,15 @@ def cuda_ms(fns, iters: int, reps: int = 5) -> float:
     distinct input sets whose bytes together exceed the L2 read each set from
     device memory (cold)."""
     import torch
-    from pql_tpu_torch.envs.rigid import collected_gc
+    from pql_tpu_torch.ops.graphs import capture_graph, side_stream
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture, as graph capture requires
-        for fn in fns:
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with collected_gc(), torch.cuda.graph(graph):
-        for k in range(iters):
+    def calls(n):
+        for k in range(n):
             fns[k % len(fns)]()
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    side_stream(dev, calls, len(fns))  # warm-up off the capture, as graph capture requires
+    graph = capture_graph(lambda: calls(iters), dev)[0]
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -698,7 +695,7 @@ def check_clip_adamw(dev) -> dict:
     captured as one graph (and its kernel nodes), and the bound. Results by
     shape; the critic's on top."""
     import torch
-    from pql_tpu_torch.algos.base import capture_graph
+    from pql_tpu_torch.ops.graphs import capture_graph
     from pql_tpu_torch.ops.kernels import clip_adamw_step, clip_adamw_step_plain
 
     hyper = (5e-4, (0.9, 0.999), 1e-8, 0.01)
@@ -1121,7 +1118,7 @@ def hand_kernel_check(dev, smi: str, tasks=HAND_TASKS, envs=HAND_KERNEL_ENVS) ->
     import torch
 
     from pql_tpu_torch.envs import VecEnv, make_task
-    from pql_tpu_torch.envs.rigid import GraphedStep
+    from pql_tpu_torch.envs.base import GraphedStep
     from pql_tpu_torch.ops import kernels
 
     out = {}
@@ -1130,7 +1127,7 @@ def hand_kernel_check(dev, smi: str, tasks=HAND_TASKS, envs=HAND_KERNEL_ENVS) ->
         t0 = time.perf_counter()
         header = kernels.hand_step_header(task)
         trace_s = time.perf_counter() - t0
-        build = kernels.build_hand_step(header)
+        build = kernels.build_source(kernels.CSRC / "hand_step.cu", header)
         progs = task.kernel_programs
         ops = task.substeps * progs["substep"].op_count() + progs["finish"].op_count()
         res = dict(trace_and_emit_s=trace_s, build_s=build["seconds"],
@@ -3206,19 +3203,12 @@ def graph_cost(fn, reps: int = LEGACY_REPS) -> dict:
     its kernel nodes (libcuda) and the mean ms of ``reps`` replays between
     CUDA events. Raises if the function cannot be captured."""
     import torch
-    from pql_tpu_torch.envs.rigid import collected_gc
+    from pql_tpu_torch.ops.graphs import capture_graph, side_stream
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with collected_gc(), torch.cuda.graph(graph):
-        fn()
-    kernels, _ = graph_kernel_nodes(graph)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    side_stream(dev, fn)
+    graph, _, kernels = capture_graph(fn, dev)
     check(kernels > 0, "an empty graph: the function launched nothing on the capturing stream")
-    graph.instantiate()
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -3301,7 +3291,7 @@ def legacy_contact_check(dev, smi: str) -> dict:
     import torch
     from pql_tpu_torch.envs import make_task
     from pql_tpu_torch.envs.hand import CUBE_HALF
-    from pql_tpu_torch.envs.rigid import GraphedStep
+    from pql_tpu_torch.envs.base import GraphedStep
     from pql_tpu_torch.physics import contact as tc
     from pql_tpu_torch.physics import dynamics as td
     from pql_tpu_torch.physics.contact import add_fext_s

@@ -23,13 +23,11 @@ import torch
 from torch import nn
 
 from pql_tpu_torch.envs.base import VecEnv, handle_timeout
-from pql_tpu_torch.envs.rigid import collected_gc, graph_kernel_nodes
 from pql_tpu_torch.models import get_model
-from pql_tpu_torch.ops import kernels
+from pql_tpu_torch.ops import graphs, kernels
 from pql_tpu_torch.ops.noise import add_mixed_normal_noise, add_normal_noise
 from pql_tpu_torch.ops.schedules import schedule_value
 from pql_tpu_torch.replay.nstep import FIELDS
-from pql_tpu_torch.utils import trace
 from pql_tpu_torch.utils.trackers import EpisodeStats
 
 
@@ -302,71 +300,14 @@ def adamw_scalars(opt: torch.optim.AdamW, steps: int, device: torch.device) -> t
     return (host.pin_memory() if device.type == "cuda" else host).to(device, non_blocking=True)
 
 
-def capture_graph(fn, device: torch.device):
-    """``fn()`` captured in a CUDA graph on ``device``, not run: (the graph,
-    fn's output, the graph's kernel nodes as libcuda counts them)."""
-    graph = torch.cuda.CUDAGraph(keep_graph=True)  # instantiated below, after its nodes can be counted
-    with torch.cuda.device(device), collected_gc(), torch.cuda.graph(graph):
-        out = fn()
-    graph.instantiate()
-    return graph, out, graph_kernel_nodes(graph)[0]
-
-
-def _take_back(counts: dict[str, int], before: dict[str, int]) -> dict[str, int]:
-    """What ``counts`` gained since it read ``before``, taken back out of it."""
-    made = {k: n - before.get(k, 0) for k, n in counts.items() if n != before.get(k, 0)}
-    counts.clear()
-    counts.update(before)
-    return made
-
-
-class PhaseGraph:
-    """One learner phase ``fn(*inputs) -> loss`` captured as a CUDA graph.
-    ``inputs`` are copied into static buffers before each replay; everything
-    else the phase reads and writes (parameters, optimizer state, the
-    replay ring, the normalizer) is read in place, so it must keep its
-    storage. Each call returns a clone of the loss: the next replay
-    overwrites the graph's own.
-
-    The capture runs the phase's Python but none of its kernels, so the
-    launch counts the kernels' wrappers made during it (``kernels.LAUNCHES``,
-    and the tracer's counters of the iteration) are taken back and made by
-    each replay instead."""
-
-    def __init__(self, fn, inputs: tuple[torch.Tensor, ...]):
-        self.inputs = [x.clone() for x in inputs]
-        launched, counted = dict(kernels.LAUNCHES), dict(trace.counters())
-        with trace.span("setup.learner_capture") as span:
-            self.graph, self.out, self.kernels = capture_graph(lambda: fn(*self.inputs), inputs[0].device)
-        self.launches = _take_back(kernels.LAUNCHES, launched)
-        self.counts = _take_back(trace.counters(), counted)
-        self.capture_s = span.seconds  # host seconds of the capture and instantiation (None with the tracer off)
-        trace.count("learner.graph_captures")
-
-    def __call__(self, *inputs: torch.Tensor) -> torch.Tensor:
-        with trace.span("learner.graph_in"):
-            for buf, x in zip(self.inputs, inputs, strict=True):
-                if x.shape != buf.shape:
-                    raise ValueError(f"a phase input of shape {tuple(x.shape)}, captured as {tuple(buf.shape)}")
-                buf.copy_(x)
-        with trace.span("learner.graph_replay"):
-            self.graph.replay()
-        for name, n in self.launches.items():
-            kernels.LAUNCHES[name] += n
-        for name, n in self.counts.items():
-            trace.count(name, n)
-        trace.count("learner.graph_replays")
-        trace.count("learner.graph_kernels", self.kernels)
-        return self.out.clone()
-
-
 class PhaseGraphs:
     """An agent's learner phases, each ``fn(*inputs, adam)`` with ``adam`` the
     ``adamw_scalars`` of its steps, so that every update's step (after an
     optimizer's first) is the kernel pair ``kernels.clip_adamw_step``.
 
     With ``capture`` (a card with one rank) they run as CUDA graphs, one per
-    phase and update count (so every update ratio gets its own). A key's
+    phase and update count (so every update ratio gets its own), each a
+    ``graphs.StaticGraph`` with the learner's spans and counters. A key's
     first call runs the phase eagerly, on a side stream as capture requires
     (it is that iteration's real update); its second captures the phase and
     replays it, and every later call replays. No update runs twice or is
@@ -381,7 +322,7 @@ class PhaseGraphs:
     came in, every graph is dropped and each key starts again eagerly."""
 
     def __init__(self):
-        self.graphs: dict[tuple[str, int], PhaseGraph | None] = {}  # None: the key ran once, eagerly
+        self.graphs: dict[tuple[str, int], graphs.StaticGraph | None] = {}  # None: the key ran once, eagerly
         self.bound: tuple = ()
 
     def run(self, phase: str, steps: int, bound: tuple, fn, inputs: tuple[torch.Tensor, ...],
@@ -398,27 +339,14 @@ class PhaseGraphs:
             key = (phase, steps)
             if key not in self.graphs:
                 self.graphs[key] = None
-                loss = self._eager(fn, inputs)
+                loss = graphs.side_stream(inputs[0].device, fn, *inputs)
             else:
                 graph = self.graphs[key]
                 if graph is None:
-                    graph = self.graphs[key] = PhaseGraph(fn, inputs)
+                    graph = self.graphs[key] = graphs.StaticGraph(fn, inputs, "learner",
+                                                                  capture="setup.learner_capture")
                 loss = graph(*inputs)
         if step_count(opt) > 0:  # (an ``opt.step`` that made no state leaves none to count)
             counts = [opt.state[p]["step"] for p in opt.param_groups[0]["params"]]
             torch._foreach_add_(counts, t0 + steps - step_count(opt))  # an eager first step counted its own
         return loss
-
-    @staticmethod
-    def _eager(fn, inputs: tuple[torch.Tensor, ...]) -> torch.Tensor:
-        dev = inputs[0].device
-        if dev.type != "cuda":
-            return fn(*inputs)
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = fn(*inputs)
-        main.wait_stream(side)
-        out.record_stream(main)
-        return out

@@ -48,8 +48,9 @@ import numpy as np
 import torch
 
 from pql_tpu_torch.cfg import require_card
+from pql_tpu_torch.envs.base import GraphedStep
 from pql_tpu_torch.envs.hand import CUBE_HALF, AllegroHand, hand_model
-from pql_tpu_torch.envs.rigid import Ant, GraphedStep
+from pql_tpu_torch.envs.rigid import Ant
 from pql_tpu_torch.physics import scalar_algebra as sa
 from pql_tpu_torch.physics.contact import box_ground_anchored_s, derive_pair, point_eff_mass
 from pql_tpu_torch.physics.dynamics import physics_substeps

@@ -16,6 +16,12 @@ task that draws inside its dynamics (the hand re-samples its goal on
 success) also has ``draw_step(gen, E)``; the caller hands that draw to
 ``step`` too, which passes it to ``dynamics`` as a third argument (the
 JAX package derives it per env from the step's key, ``fold_in(k_dyn, i)``).
+
+A task on the ported engine (``GraphedTask``: the rigid tasks, the hand's
+bowl palm, FrankaCubeStack) runs its control step on a card as one captured
+CUDA graph per (E, device) (``GraphedStep``): eagerly it is tens of
+thousands of launches, more than the host can issue. The CPU runs it
+eagerly. A failed capture or replay raises; nothing falls back to eager.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from dataclasses import dataclass
 from typing import Protocol
 
 import torch
+
+from pql_tpu_torch.ops import graphs
 
 
 class Task(Protocol):
@@ -45,6 +53,52 @@ class Task(Protocol):
     def dynamics(self, state: dict[str, torch.Tensor], action: torch.Tensor, *step_draw: torch.Tensor):
         """One step: (next_state, reward [E], terminated [E] bool, info).
         ``step_draw``: the ``draw_step`` draw, for tasks that have one."""
+
+
+class GraphedStep(graphs.StaticGraph):
+    """A pure step ``fn(state, *inputs) -> (next_state, reward, terminated,
+    info)`` as a CUDA graph, called as fn is, with the env layer's spans and
+    counters (``env.graph_*``, ``setup.graph_warmup/capture/instantiate``)."""
+
+    def __init__(self, fn, state: dict[str, torch.Tensor], *inputs: torch.Tensor):
+        super().__init__(fn, (state, *inputs), "env", warmup="setup.graph_warmup", capture="setup.graph_capture",
+                         instantiate="setup.graph_instantiate", out="env.graph_out")
+
+
+class GraphedTask:
+    """What every task on the ported engine shares: its tensor constants,
+    built once per device by ``_make_consts`` (a graph capture allows no
+    host-to-device copy), and ``dynamics``, which runs ``control_step``
+    eagerly on the CPU and through one ``GraphedStep`` per (E, device) on a
+    card."""
+
+    def __init__(self):
+        self._consts: dict[torch.device, object] = {}
+        self._graphs: dict[tuple[int, torch.device], GraphedStep] = {}
+
+    def _make_consts(self, device: torch.device):
+        raise NotImplementedError
+
+    def _on(self, device: torch.device):
+        c = self._consts.get(device)
+        if c is None:
+            c = self._consts[device] = self._make_consts(device)
+        return c
+
+    def control_step(self, state, action, *draw):
+        """One control step, eagerly: (next_state, reward [E], terminated [E], info)."""
+        raise NotImplementedError
+
+    def dynamics(self, state: dict[str, torch.Tensor], action: torch.Tensor, *draw: torch.Tensor):
+        """``control_step``; on a CUDA device through its captured graph."""
+        if action.device.type != "cuda":
+            return self.control_step(state, action, *draw)
+        key = (action.shape[0], action.device)
+        graph = self._graphs.get(key)
+        if graph is None:
+            self._on(action.device)  # constants first: capture allows no copies from the host
+            graph = self._graphs[key] = GraphedStep(self.control_step, state, action, *draw)
+        return graph(state, action, *draw)
 
 
 @dataclass

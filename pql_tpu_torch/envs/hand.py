@@ -24,7 +24,7 @@ re-sampling) is one launch of the hand-written kernel
 step's end are generated from this module's own algebra, traced once on
 symbolic columns (``kernel_programs``, ``pql_tpu_torch.physics.codegen``).
 The bowl palm, whose contact group has no per-pair scalar form, keeps the
-captured CUDA graph per (E, device) (pql_tpu_torch.envs.rigid.GraphedTask).
+captured CUDA graph per (E, device) (pql_tpu_torch.envs.base.GraphedTask).
 The CPU runs the step eagerly.
 """
 
@@ -37,7 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pql_tpu_torch.envs.rigid import GraphedTask
+from pql_tpu_torch.envs.base import GraphedTask
 from pql_tpu_torch.ops import kernels
 from pql_tpu_torch.physics import FREE, Geom, HINGE, RigidBodyModel, codegen
 from pql_tpu_torch.physics import scalar_algebra as sa
@@ -264,7 +264,7 @@ class AllegroHand(GraphedTask):
 
     def _make_consts(self, device: torch.device) -> _HandConsts:
         if device.type == "cuda" and self.palm == "flat":
-            kernels.prebuild_hand_step(self)  # the fused kernel's build overlaps the rest of the set-up
+            kernels.prebuild("hand_step", kernels.hand_step_header(self))  # the build overlaps the rest of the set-up
         is_abduct = np.arange(self.n_dof) % LINKS_PER_FINGER == 0
         t = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
         return _HandConsts(

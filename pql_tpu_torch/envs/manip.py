@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pql_tpu_torch.envs.rigid import GraphedTask
+from pql_tpu_torch.envs.base import GraphedTask
 from pql_tpu_torch.physics import Geom, HINGE, RigidBodyModel
 from pql_tpu_torch.physics import scalar_algebra as sa
 from pql_tpu_torch.physics.dynamics import _columns, _kin_s, _stack, physics_substeps

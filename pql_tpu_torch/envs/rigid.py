@@ -11,175 +11,23 @@ fall). Humanoid and Anymal share the machinery.
 Batched as the port's ``Task`` protocol (pql_tpu_torch.envs.base): every
 state leaf is [E, ...]. ``draw_reset`` returns the random numbers the JAX
 ``init_state`` draws for each env; ``init_state`` maps them to
-{"q", "qd", "contact"[, "cmd"]}.
-
-On a CUDA device a task's control step (all substeps plus the reward) is
-one captured CUDA graph per (E, device), replayed every step: eagerly the
-step is tens of thousands of small kernel launches, which the host could
-not issue fast enough. The CPU runs the same function eagerly. If capture
-or replay fails, the error is raised; nothing falls back to eager on the
-card. ``GraphedStep`` and ``GraphedTask`` hold that machinery for every
-task on the engine; the hand (pql_tpu_torch.envs.hand) uses it for its bowl
-palm only, and runs its flat palm's step as one hand-written kernel.
+{"q", "qd", "contact"[, "cmd"]}. On a CUDA device a task's control step
+(all substeps plus the reward) is one captured CUDA graph per (E, device)
+(``envs/base.py::GraphedTask``).
 """
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
-import functools
-import gc
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from pql_tpu_torch.envs.base import GraphedTask
 from pql_tpu_torch.physics import FREE, Geom, HINGE, RigidBodyModel
 from pql_tpu_torch.physics.contact import SpherePairs, derive_pair, ground_anchored_v, ground_pairs, point_eff_mass
 from pql_tpu_torch.physics.dynamics import physics_substeps
 from pql_tpu_torch.physics.spatial import quat_rotate
-from pql_tpu_torch.utils import trace
-
-
-@contextlib.contextmanager
-def collected_gc():
-    """Collect garbage now and none in the block (a graph capture): a dead
-    reference cycle that holds a CUDA graph, collected while a stream
-    captures, destroys that graph mid-capture and invalidates the capture
-    ("operation not permitted when stream is capturing"); torch.cuda.graph
-    collects nothing first."""
-    gc.collect()
-    enabled = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if enabled:
-            gc.enable()
-
-
-@functools.cache
-def _libcuda():
-    cuda = ctypes.CDLL("libcuda.so.1")
-    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
-    cuda.cuGraphGetNodes.restype = ctypes.c_int
-    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-    cuda.cuGraphNodeGetType.restype = ctypes.c_int
-    return cuda
-
-
-def graph_kernel_nodes(graph) -> tuple[int, int]:
-    """(kernel nodes, all nodes) of a captured ``torch.cuda.CUDAGraph`` made
-    with ``keep_graph=True``, counted by libcuda (cuGraphGetNodes,
-    cuGraphNodeGetType): the kernel launches of one replay. A profile of an
-    eager step of ~100k launches may lose kernel records (62,491 of 99,948
-    in one run), a count of the graph's nodes does not."""
-    cuda = _libcuda()
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed to count the graph's nodes")
-    nodes = (ctypes.c_void_p * n.value)()
-    if cuda.cuGraphGetNodes(handle, ctypes.cast(nodes, ctypes.c_void_p), ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed to list the graph's nodes")
-    kind, kernels = ctypes.c_int(), 0
-    for node in nodes:
-        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
-            raise RuntimeError("cuGraphNodeGetType failed")
-        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
-    return kernels, n.value
-
-
-class GraphedStep:
-    """A pure step function ``fn(state, *inputs) -> (next_state, reward,
-    terminated, info)`` captured once in a CUDA graph; ``inputs`` are
-    tensors (the action, and the task's per-step draw if it has one).
-
-    Each call copies the inputs into the graph's static buffers, replays,
-    and clones the outputs, info included, so no returned tensor aliases a
-    buffer the next replay overwrites. The function must not sync with the
-    host. ``kernels`` is the graph's kernel nodes, counted once here; the
-    tracer's ``env.graph_captures``, ``env.graph_replays`` and
-    ``env.graph_kernels`` (kernel nodes replayed) count the builds and
-    calls."""
-
-    def __init__(self, fn, state: dict[str, torch.Tensor], *inputs: torch.Tensor):
-        dev = inputs[0].device
-        self.state_in = {k: v.clone() for k, v in state.items()}
-        self.inputs = [x.clone() for x in inputs]
-        with torch.cuda.device(dev):
-            with trace.span("setup.graph_warmup") as warmup:
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):  # warm-up off the capture, as capture requires
-                    fn(self.state_in, *self.inputs)
-                torch.cuda.current_stream().wait_stream(side)
-                torch.cuda.synchronize(dev)
-            with trace.span("setup.graph_capture") as capture:
-                self.graph = torch.cuda.CUDAGraph(keep_graph=True)  # instantiated below, to time it apart
-                with collected_gc(), torch.cuda.graph(self.graph):
-                    self.out = fn(self.state_in, *self.inputs)
-            with trace.span("setup.graph_instantiate") as instantiate:
-                self.graph.instantiate()
-        self.kernels = graph_kernel_nodes(self.graph)[0]
-        trace.count("env.graph_captures")
-        # host seconds of the eager warm-up, the capture and the instantiation (None with the tracer off)
-        self.build_s = dict(warmup=warmup.seconds, capture=capture.seconds, instantiate=instantiate.seconds)
-
-    def __call__(self, state: dict[str, torch.Tensor], *inputs: torch.Tensor):
-        if state.keys() != self.state_in.keys():
-            raise KeyError(f"state keys {sorted(state)} differ from the captured {sorted(self.state_in)}")
-        if len(inputs) != len(self.inputs):
-            raise TypeError(f"{len(inputs)} step inputs, the graph was captured with {len(self.inputs)}")
-        with trace.span("env.graph_in"):
-            for k, buf in self.state_in.items():
-                buf.copy_(state[k])
-            for buf, x in zip(self.inputs, inputs):
-                buf.copy_(x)
-        with trace.span("env.graph_replay"):
-            self.graph.replay()
-        trace.count("env.graph_replays")
-        trace.count("env.graph_kernels", self.kernels)
-        with trace.span("env.graph_out"):
-            next_state, reward, terminated, info = self.out
-            clone = lambda d: {k: v.clone() for k, v in d.items()}  # noqa: E731
-            return clone(next_state), reward.clone(), terminated.clone(), clone(info)
-
-
-class GraphedTask:
-    """What every task on the ported engine shares: its tensor constants,
-    built once per device by ``_make_consts`` (a graph capture allows no
-    host-to-device copy), and ``dynamics``, which runs ``control_step``
-    eagerly on the CPU and through one captured CUDA graph per (E, device)
-    on a card."""
-
-    def __init__(self):
-        self._consts: dict[torch.device, object] = {}
-        self._graphs: dict[tuple[int, torch.device], GraphedStep] = {}
-
-    def _make_consts(self, device: torch.device):
-        raise NotImplementedError
-
-    def _on(self, device: torch.device):
-        c = self._consts.get(device)
-        if c is None:
-            c = self._consts[device] = self._make_consts(device)
-        return c
-
-    def control_step(self, state, action, *draw):
-        """One control step, eagerly: (next_state, reward [E], terminated [E], info)."""
-        raise NotImplementedError
-
-    def dynamics(self, state: dict[str, torch.Tensor], action: torch.Tensor, *draw: torch.Tensor):
-        """``control_step``; on a CUDA device through its captured graph."""
-        if action.device.type != "cuda":
-            return self.control_step(state, action, *draw)
-        key = (action.shape[0], action.device)
-        graph = self._graphs.get(key)
-        if graph is None:
-            self._on(action.device)  # constants first: capture allows no copies from the host
-            graph = self._graphs[key] = GraphedStep(self.control_step, state, action, *draw)
-        return graph(state, action, *draw)
 
 
 @dataclass(frozen=True)

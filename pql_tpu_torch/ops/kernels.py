@@ -3,8 +3,12 @@
 Each kernel's source lives in ``pql_tpu_torch/csrc/``. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface, at
 first use, into ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), and loaded with ``ctypes``. Nothing is built or loaded when
-this module is imported.
+``.gitignore``), and loaded with ``ctypes``. Every source takes one build
+path (``build_source``, ``prebuild``, ``_library``), with its flags
+(``FLAGS``) and, for a source of ``GENERATED``, the header generated for it;
+a library is named by the digest of the three (``library_path``), so a build
+is reused wherever it exists. Nothing is built or loaded when this module
+is imported.
 
 Every wrapper follows one contract:
 
@@ -40,11 +44,11 @@ a block may use on sm_90.
 JAX package's hand step is plain ``jnp`` under ``jit``): it runs the hand
 task's whole control step in one launch, one thread per env, where the eager
 step is ~1e5 elementwise launches (the captured graph of
-``envs/rigid.py::GraphedStep``). The source is the file's hand-written
+``envs/base.py::GraphedStep``). The source is the file's hand-written
 skeleton around a generated header: the task's substep and the step's end,
 traced from the port's algebra (``AllegroHand.kernel_programs``) and
 emitted one statement per op (``physics/codegen.py``). It is built with
-``HAND_STEP_FLAGS`` (no FMA contraction, so each product and sum rounds as
+``-fmad=false`` (``FLAGS``: no FMA contraction, so each product and sum rounds as
 the eager op does), one library per generated header, cached by the digest
 of the skeleton, the header and the flags. It is bound by operations, about
 1e5 a thread; one thread per env leaves ~2 warps an SM at 8,192 envs.
@@ -88,7 +92,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-HAND_STEP_FLAGS = NVCC_FLAGS + ("-fmad=false",)
+FLAGS = {"hand_step": NVCC_FLAGS + ("-fmad=false",)}  # the sources built with other flags than NVCC_FLAGS
 
 # kernel name -> what chip_smoke.py reports about it
 KERNELS = {
@@ -123,36 +127,53 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels are built on the machine with the card")
 
 
-def _library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+def library_path(src: Path, header: str | None = None) -> Path:
+    """Where ``src`` (built around ``header``, for a source of ``GENERATED``)
+    is built: ``build/kernels/lib<stem>-<digest>.so``, the digest that of the
+    source's bytes, the header and its nvcc flags, space-joined."""
+    flags = " ".join(FLAGS.get(src.stem, NVCC_FLAGS))
+    digest = hashlib.sha256(src.read_bytes() + (header or "").encode() + flags.encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
-def _start_build(src: Path):
-    """nvcc started on ``src`` into a temporary file beside its library."""
+def _start_build(src: Path, header: str | None = None):
+    """nvcc started on ``src`` into a temporary file beside its library; a
+    ``header`` is first written beside it too, as
+    ``<stem>-<digest>/<stem>_body.h``, where the source includes it."""
+    lib = library_path(src, header)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _library_path(src).with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    suffix = f".{os.getpid()}.{threading.get_ident()}.tmp"
+    include = []
+    if header is not None:
+        gen = BUILD_DIR / lib.stem.removeprefix("lib")
+        gen.mkdir(exist_ok=True)
+        body = gen / f"{src.stem}_body.h"
+        tmp = body.with_name(body.name + suffix)
+        tmp.write_text(header)
+        os.replace(tmp, body)  # whole, where another process builds the same header
+        include = ["-I", str(gen)]
+    tmp = lib.with_suffix(suffix)
+    proc = subprocess.Popen([_nvcc(), *FLAGS.get(src.stem, NVCC_FLAGS), *include, "-o", str(tmp), str(src)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, time.perf_counter()
+    return proc, tmp, lib, time.perf_counter()
 
 
 def _finish_build(src: Path, job) -> dict:
-    proc, tmp, t0 = job
+    proc, tmp, lib, t0 = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src.name} (rc {proc.returncode}):\n{log}")
-    lib = _library_path(src)
     os.replace(tmp, lib)  # whole, where another thread or process builds the same source
     return dict(path=str(lib), seconds=time.perf_counter() - t0, ptxas=log.strip())
 
 
-def build_source(src: Path) -> dict:
-    """Compile ``src`` unless built. Returns {path, seconds, ptxas}."""
-    lib = _library_path(src)
+def build_source(src: Path, header: str | None = None) -> dict:
+    """Compile ``src`` (around ``header``) unless built. Returns {path,
+    seconds, ptxas}: 0 s where it was built already."""
+    lib = library_path(src, header)
     if lib.exists():
         return dict(path=str(lib), seconds=0.0, ptxas="(already built)")
-    return _finish_build(src, _start_build(src))
+    return _finish_build(src, _start_build(src, header))
 
 
 def build_kernels() -> dict[str, dict]:
@@ -163,8 +184,8 @@ def build_kernels() -> dict[str, dict]:
     for src in sorted(CSRC.glob("*.cu")):
         if src.stem in GENERATED:
             continue
-        if _library_path(src).exists():
-            out[src.stem] = dict(path=str(_library_path(src)), seconds=0.0, ptxas="(already built)")
+        if library_path(src).exists():
+            out[src.stem] = build_source(src)
         else:
             jobs[src] = _start_build(src)
     for src, job in jobs.items():
@@ -178,25 +199,27 @@ def _build_pool() -> concurrent.futures.ThreadPoolExecutor:
     return concurrent.futures.ThreadPoolExecutor(max_workers=2, thread_name_prefix="kernel_build")
 
 
-# builds started ahead of the first launch: source stem -> the future of build_source
-_PENDING: dict[str, concurrent.futures.Future] = {}
+# builds started ahead of the first launch: library path -> the future of build_source
+_PENDING: dict[Path, concurrent.futures.Future] = {}
 
 
-def prebuild(stem: str) -> None:
-    """Start ``csrc/<stem>.cu``'s nvcc build on a background thread, so that
-    it overlaps the rest of a run's set-up; the first launch waits for it
-    (and raises what it raised)."""
+def prebuild(stem: str, header: str | None = None) -> None:
+    """Start ``csrc/<stem>.cu``'s nvcc build (around ``header``) on a
+    background thread, so that it overlaps the rest of a run's set-up; the
+    first launch waits for it (and raises what it raised)."""
     src = CSRC / f"{stem}.cu"
-    if stem not in _PENDING and not _library_path(src).exists():
-        _PENDING[stem] = _build_pool().submit(build_source, src)
+    lib = library_path(src, header)
+    if lib not in _PENDING and not lib.exists():
+        _PENDING[lib] = _build_pool().submit(build_source, src, header)
 
 
 @functools.cache
-def _library(stem: str) -> ctypes.CDLL:
-    """``csrc/<stem>.cu``'s library, loaded once: the build ``prebuild``
-    started waited for, or built now."""
-    pending = _PENDING.pop(stem, None)
-    return ctypes.CDLL((pending.result() if pending is not None else build_source(CSRC / f"{stem}.cu"))["path"])
+def _library(stem: str, header: str | None = None) -> ctypes.CDLL:
+    """``csrc/<stem>.cu``'s library (around ``header``), loaded once: the
+    build ``prebuild`` started waited for, or built now."""
+    src = CSRC / f"{stem}.cu"
+    pending = _PENDING.pop(library_path(src, header), None)
+    return ctypes.CDLL((pending.result() if pending is not None else build_source(src, header))["path"])
 
 
 @functools.cache
@@ -277,12 +300,8 @@ def c51_td_target(
 
 # ------------------------------------------------------------ hand_control_step
 
-# the hand kernel's builds in this process: digest -> {path, seconds, ptxas}
-HAND_BUILDS: dict[str, dict] = {}
 # each hand task's generated header, made once per task object
 _HAND_HEADERS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
-# builds started ahead of the first launch: digest -> the future of build_hand_step
-_HAND_PENDING: dict[str, concurrent.futures.Future] = {}
 
 
 def hand_block(envs: int) -> int:
@@ -324,52 +343,9 @@ def hand_step_header(task) -> str:
     return header
 
 
-def hand_step_digest(header: str) -> str:
-    src = (CSRC / "hand_step.cu").read_bytes()
-    return hashlib.sha256(src + header.encode() + " ".join(HAND_STEP_FLAGS).encode()).hexdigest()[:12]
-
-
-def build_hand_step(header: str) -> dict:
-    """Build ``csrc/hand_step.cu`` around ``header`` with nvcc (once per
-    digest; a build another process finished is reused). Returns {path,
-    seconds, ptxas}: 0 s where it was built already."""
-    digest = hand_step_digest(header)
-    if digest in HAND_BUILDS:
-        return HAND_BUILDS[digest]
-    lib = BUILD_DIR / f"libhand_step-{digest}.so"
-    if lib.exists():
-        HAND_BUILDS[digest] = dict(path=str(lib), seconds=0.0, ptxas="(already built)")
-        return HAND_BUILDS[digest]
-    gen = BUILD_DIR / f"hand_step-{digest}"  # the header, kept beside the library
-    gen.mkdir(parents=True, exist_ok=True)
-    tmp = gen / f"hand_step_body.h.{os.getpid()}.tmp"
-    tmp.write_text(header)
-    os.replace(tmp, gen / "hand_step_body.h")  # whole, where another rank builds the same digest
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *HAND_STEP_FLAGS, "-I", str(gen), "-o", str(tmp), str(CSRC / "hand_step.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for hand_step.cu (rc {proc.returncode}):\n{proc.stdout[-20000:]}")
-    os.replace(tmp, lib)
-    HAND_BUILDS[digest] = dict(path=str(lib), seconds=time.perf_counter() - t0, ptxas=proc.stdout.strip())
-    return HAND_BUILDS[digest]
-
-
-def prebuild_hand_step(task) -> None:
-    """Trace and emit ``task``'s kernel here and start its nvcc build on a
-    background thread, so that the build overlaps the rest of a run's
-    set-up; the first launch waits for it (and raises what it raised)."""
-    header = hand_step_header(task)
-    digest = hand_step_digest(header)
-    if digest not in HAND_BUILDS and digest not in _HAND_PENDING:
-        _HAND_PENDING[digest] = _build_pool().submit(build_hand_step, header)
-
-
 @functools.cache
 def _hand_lib(header: str) -> ctypes.CDLL:
-    pending = _HAND_PENDING.pop(hand_step_digest(header), None)
-    lib = ctypes.CDLL((pending.result() if pending is not None else build_hand_step(header))["path"])
+    lib = _library("hand_step", header)
     lib.hand_control_step.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.hand_control_step.restype = ctypes.c_int
     return lib

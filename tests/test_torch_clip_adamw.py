@@ -25,7 +25,7 @@ from pql_tpu_torch.algos import base
 from pql_tpu_torch.algos.ddpgv import DDPGV
 from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import make_config
-from pql_tpu_torch.ops import kernels
+from pql_tpu_torch.ops import graphs, kernels
 from pql_tpu_torch.utils import trace
 
 LR, BETAS, EPS, WD, MAX_NORM = 5e-4, (0.9, 0.999), 1e-8, 0.01, 0.5
@@ -285,7 +285,7 @@ def test_kernel_in_a_graph_equals_opt_step_on_card(cuda):
     moments = [[opt.state[p][k] for p in mine] for k in ("exp_avg", "exp_avg_sq")]
     _step(*_state(SMALL, gen, cuda), _adam(1, cuda))  # the library loaded before the capture
     kernels.reset_launches()
-    graph, _, nodes = base.capture_graph(lambda: _step(mine, grads, *moments, adam), cuda)
+    graph, _, nodes = graphs.capture_graph(lambda: _step(mine, grads, *moments, adam), cuda)
     assert nodes == 2 and kernels.LAUNCHES["clip_adamw_step"] == 2
     for _ in range(30):
         scale = 10.0 ** torch.randint(-9, -3, (len(CRITIC),), generator=gen, device=cuda)

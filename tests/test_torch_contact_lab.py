@@ -152,7 +152,7 @@ def test_capture_guard_collects_first_and_pauses_gc():
     import gc
     import weakref
 
-    from pql_tpu_torch.envs.rigid import collected_gc
+    from pql_tpu_torch.ops.graphs import collected_gc
 
     class Node:
         pass

@@ -55,7 +55,7 @@ from pql_tpu_torch.algos.base import set_precision
 from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import make_config
 from pql_tpu_torch.envs import make_eval_env, make_task
-from pql_tpu_torch.envs.rigid import GraphedStep
+from pql_tpu_torch.envs.base import GraphedStep
 from pql_tpu_torch.physics import dynamics as td
 from pql_tpu_torch.ops import kernels
 from pql_tpu_torch.ops.kernels import c51_td_target, c51_td_target_plain

@@ -48,6 +48,7 @@ This file imports nothing of JAX.
 """
 
 import ctypes
+import hashlib
 import shutil
 import subprocess
 
@@ -56,9 +57,8 @@ import pytest
 import torch
 
 from chip_smoke import hand_kernel_gaps
-from pql_tpu_torch.envs.base import VecEnv
+from pql_tpu_torch.envs.base import GraphedTask, VecEnv
 from pql_tpu_torch.envs.hand import AllegroHand, ShadowHand, _rand_quat_s
-from pql_tpu_torch.envs.rigid import GraphedTask
 from pql_tpu_torch.ops import kernels
 from pql_tpu_torch.physics import codegen
 from pql_tpu_torch.physics.dynamics import _columns, physics_substeps
@@ -217,8 +217,40 @@ def test_emitted_source_on_the_host_matches_the_eager_step(name, tmp_path):
 
 def test_emitted_source_is_the_same_twice():
     a, b = (kernels.hand_step_header(AllegroHand()) for _ in range(2))
-    assert a == b and kernels.hand_step_digest(a) == kernels.hand_step_digest(b)
-    assert kernels.hand_step_digest(kernels.hand_step_header(ShadowHand())) != kernels.hand_step_digest(a)
+    lib = lambda header: kernels.library_path(kernels.CSRC / "hand_step.cu", header)  # noqa: E731
+    assert a == b and lib(a) == lib(b)
+    assert lib(kernels.hand_step_header(ShadowHand())) != lib(a)
+
+
+@pytest.mark.parametrize("stem", ["c51_projection", "clip_adamw", "hand_step"])
+def test_libraries_keep_their_paths_and_build_commands(stem, tmp_path, monkeypatch):
+    """Every source's library is named as before the build paths were one:
+    sha256 of the source, then for the hand its generated header, then the
+    space-joined flags (the hand's with ``-fmad=false``), so a library a
+    checkout has built is reused. nvcc's command (not run: a stand-in) is
+    as before, with the hand's header at ``hand_step-<digest>/hand_step_body.h``."""
+    src = kernels.CSRC / f"{stem}.cu"
+    header = kernels.hand_step_header(AllegroHand()) if stem == "hand_step" else None
+    if header is None:
+        flags = kernels.NVCC_FLAGS
+        digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    else:
+        flags = kernels.NVCC_FLAGS + ("-fmad=false",)
+        digest = hashlib.sha256(src.read_bytes() + header.encode() + " ".join(flags).encode()).hexdigest()[:12]
+    assert kernels.library_path(src, header) == kernels.BUILD_DIR / f"lib{stem}-{digest}.so"
+    commands = []
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "Popen", lambda cmd, **kw: commands.append(cmd))
+    kernels._start_build(src, header)
+    (cmd,) = commands
+    gen = tmp_path / f"{stem}-{digest}"
+    assert cmd[:-3] == ["nvcc", *flags, *(() if header is None else ("-I", str(gen)))]
+    assert cmd[-3] == "-o" and cmd[-2].startswith(str(tmp_path / f"lib{stem}-{digest}.")) and cmd[-1] == str(src)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ([] if header is None else [gen.name])
+    if header is not None:
+        assert [p.name for p in gen.iterdir()] == ["hand_step_body.h"]
+        assert (gen / "hand_step_body.h").read_text() == header
 
 
 @pytest.mark.parametrize("name", list(HANDS))

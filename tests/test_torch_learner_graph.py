@@ -32,7 +32,7 @@ from pql_tpu_torch.algos import pql as pql_module
 from pql_tpu_torch.algos.ddpgv import DDPGV
 from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import make_config
-from pql_tpu_torch.ops import kernels
+from pql_tpu_torch.ops import graphs, kernels
 from pql_tpu_torch.parallel.mesh import Mesh
 from pql_tpu_torch.utils import checkpoint, trace
 
@@ -57,12 +57,12 @@ class _CpuGraph:
 def cpu_graphs(monkeypatch):
     made = []
 
-    def capture(fn, device):
+    def capture(fn, device, *spans):
         graph = _CpuGraph(fn)
         made.append(graph)
         return graph, graph.out, KERNEL_NODES
 
-    monkeypatch.setattr(base, "capture_graph", capture)
+    monkeypatch.setattr(graphs, "capture_graph", capture)
     trace.reset()
     yield made
     trace.reset()
@@ -223,7 +223,7 @@ def test_captured_launches_are_counted_at_each_replay(monkeypatch):
         def replay(self):
             pass
 
-    def capture(fn, device):  # the Python of the phase runs, as in a capture
+    def capture(fn, device, *spans):  # the Python of the phase runs, as in a capture
         return _Graph(), fn(), KERNEL_NODES
 
     def phase(x):
@@ -233,11 +233,11 @@ def test_captured_launches_are_counted_at_each_replay(monkeypatch):
             trace.count("learner.clip_adamw_steps", 2)
         return x.sum()
 
-    monkeypatch.setattr(base, "capture_graph", capture)
+    monkeypatch.setattr(graphs, "capture_graph", capture)
     monkeypatch.setattr(kernels, "LAUNCHES", {**kernels.LAUNCHES, "c51_td_target": 5, "clip_adamw_step": 1})
     trace.reset()
     trace.iteration()
-    graph = base.PhaseGraph(phase, (torch.ones(3),))
+    graph = graphs.StaticGraph(phase, (torch.ones(3),), "learner", capture="setup.learner_capture")
     assert kernels.LAUNCHES["c51_td_target"] == 5 and kernels.LAUNCHES["clip_adamw_step"] == 1
     assert graph.launches == {"c51_td_target": 8, "clip_adamw_step": 16}
     assert "learner.clip_adamw_steps" not in trace.counters() and graph.counts == {"learner.clip_adamw_steps": 16}
@@ -329,7 +329,7 @@ def test_adamw_graph_step_in_a_graph_equals_opt_step_on_card(cuda):
     opt_ref.step()
     group = opt.param_groups[0]
     moments = [[opt.state[p][k] for p in mine] for k in ("exp_avg", "exp_avg_sq")]
-    graph, _, _ = base.capture_graph(lambda: kernels.clip_adamw_step_plain(
+    graph, _, _ = graphs.capture_graph(lambda: kernels.clip_adamw_step_plain(
         mine, grads, *moments, adam, None, group["lr"], group["betas"], group["eps"], group["weight_decay"]), cuda)
     for _ in range(30):
         scale = 10.0 ** torch.randint(-9, 1, (len(shapes),), generator=gen, device=cuda)

@@ -21,11 +21,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from pql_tpu_torch.algos import base
 from pql_tpu_torch.algos.ddpgv import DDPGV
 from pql_tpu_torch.algos.pql import PQL
 from pql_tpu_torch.cfg import make_config
-from pql_tpu_torch.envs import rigid
+from pql_tpu_torch.envs.base import GraphedStep
+from pql_tpu_torch.ops import graphs
 from pql_tpu_torch.utils import trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -174,51 +174,36 @@ def test_ddpgv_iteration_spans_in_order_with_the_adapter_names():
 
 
 class _StubGraph:
-    """A CUDA graph's stand-in: the capture runs the function once, eagerly."""
+    """A CUDA graph's stand-in, which counts its replays."""
 
-    def __init__(self, keep_graph=False):
+    def __init__(self):
         self.replays = 0
-
-    def instantiate(self):
-        pass
 
     def replay(self):
         self.replays += 1
 
 
 def test_graphed_step_counts_captures_replays_and_kernel_nodes(monkeypatch):
-    class _Ctx:
-        def __init__(self, *a, **k):
+    def capture(fn, device, captured, instantiated):  # the Python of the step runs, as in a capture
+        with captured:
+            out = fn()
+        with instantiated:
             pass
+        return _StubGraph(), out, 1234
 
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *a):
-            return False
-
-    class _Stream:
-        def wait_stream(self, other):
-            pass
-
-    monkeypatch.setattr(torch.cuda, "device", _Ctx)
-    monkeypatch.setattr(torch.cuda, "stream", _Ctx)
-    monkeypatch.setattr(torch.cuda, "graph", _Ctx)
-    monkeypatch.setattr(torch.cuda, "Stream", _Stream)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    monkeypatch.setattr(graphs, "capture_graph", capture)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubGraph)
-    monkeypatch.setattr(rigid, "graph_kernel_nodes", lambda graph: (1234, 1300))
 
     def fn(state, action):
         return {"x": state["x"] + action}, action.sum(-1), action[:, 0] > 0, {"y": action * 2}
 
-    step = rigid.GraphedStep(fn, {"x": torch.zeros(4, 2)}, torch.ones(4, 2))
+    step = GraphedStep(fn, {"x": torch.zeros(4, 2)}, torch.ones(4, 2))
     assert step.kernels == 1234
     assert set(step.build_s) == {"warmup", "capture", "instantiate"} and all(v >= 0 for v in step.build_s.values())
     setup = trace.recent()[-1]
     assert setup.counters == {"env.graph_captures": 1}
     assert [s.name for s in setup.spans] == ["setup.graph_warmup", "setup.graph_capture", "setup.graph_instantiate"]
+    assert [s.parent for s in setup.spans] == [-1, -1, -1]  # the instantiation's time is not the capture's
     for _ in range(2):
         trace.iteration()
         with trace.span("env.sim"):
@@ -230,8 +215,39 @@ def test_graphed_step_counts_captures_replays_and_kernel_nodes(monkeypatch):
     assert [s.name for s in iters[0].spans] == ["env.sim", "env.graph_in", "env.graph_replay", "env.graph_out"]
     assert report.counter_per_iter(iters, "env.graph_kernels") == 1234
     trace.enable(False)
-    assert rigid.GraphedStep(fn, {"x": torch.zeros(4, 2)}, torch.ones(4, 2)).build_s == dict(
+    assert GraphedStep(fn, {"x": torch.zeros(4, 2)}, torch.ones(4, 2)).build_s == dict(
         warmup=None, capture=None, instantiate=None)
+
+
+def test_graphed_step_copies_the_state_in_by_key(monkeypatch):
+    """A state whose keys come in another order than at the capture (Anymal's
+    ``cmd`` moves behind ``contact`` after a step) is copied in key by key."""
+
+    class _Replay(_StubGraph):
+        def __init__(self, fn, out):
+            super().__init__()
+            self.fn, self.out = fn, out
+
+        def replay(self):
+            super().replay()
+            for buf, x in zip(graphs._leaves(self.out), graphs._leaves(self.fn())):
+                buf.copy_(x)
+
+    def capture(fn, device, *spans):
+        out = fn()
+        return _Replay(fn, out), out, 1
+
+    monkeypatch.setattr(graphs, "capture_graph", capture)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+
+    def fn(state, action):
+        return {"q": state["q"] + action, "cmd": state["cmd"] * 2}, action.sum(-1), action[:, 0] > 0, {}
+
+    step = GraphedStep(fn, {"q": torch.zeros(4, 2), "cmd": torch.zeros(4, 3)}, torch.ones(4, 2))
+    nxt = step({"cmd": torch.ones(4, 3), "q": torch.full((4, 2), 5.0)}, torch.ones(4, 2))[0]
+    assert torch.equal(nxt["q"], torch.full((4, 2), 6.0)) and torch.equal(nxt["cmd"], torch.full((4, 3), 2.0))
+    with pytest.raises(ValueError, match="captured as"):
+        step({"q": torch.zeros(4, 2), "cmd": torch.zeros(4, 2)}, torch.ones(4, 2))
 
 
 def test_learner_graphs_count_captures_replays_and_kernel_nodes(monkeypatch):
@@ -248,11 +264,11 @@ def test_learner_graphs_count_captures_replays_and_kernel_nodes(monkeypatch):
         def replay(self):
             self.out.copy_(self.fn())
 
-    def capture(fn, device):
+    def capture(fn, device, *spans):
         graph = _Graph(fn)
         return graph, graph.out, 321
 
-    monkeypatch.setattr(base, "capture_graph", capture)
+    monkeypatch.setattr(graphs, "capture_graph", capture)
     cfg = make_config("pql", task="Cartpole", num_envs=8, algo__batch_size=32, algo__memory_size=4096,
                       algo__warm_up=4, algo__critic_sample_ratio=2, algo__critic_actor_ratio=2)
     agent = PQL(cfg, device="cpu")
@@ -518,7 +534,7 @@ def test_device_segments_tile_the_iteration_on_the_card():
     rows = [r for r in _iterations(trace.recent(sync=True)) if r.period_ms is not None]
     assert len(rows) == 5
     (graph,) = agent.env.task._graphs.values()
-    kernels = rigid.graph_kernel_nodes(graph.graph)[0]
+    kernels = graphs.graph_kernel_nodes(graph.graph)[0]
     learner = sum(g.kernels for g in agent._graphs.graphs.values())  # the critic's and the actor's graph
     for rec in rows:
         assert tuple(_top(rec)) == PQL_TOP and report.tiles(rec)

@@ -58,6 +58,7 @@ def main(argv: list[str]) -> int:
     from pql_tpu_torch.algos import get_algo
     from pql_tpu_torch.algos.base import set_precision
     from pql_tpu_torch.cfg import parse_cli
+    from pql_tpu_torch.ops.graphs import graph_kernel_nodes
 
     if not torch.cuda.is_available():
         print("profile_read: no CUDA device", file=sys.stderr)
@@ -82,7 +83,7 @@ def main(argv: list[str]) -> int:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
             graph.graph.replay()
             torch.cuda.synchronize()
-        out.update(graph_kernel_nodes=chip_smoke.graph_kernel_nodes(graph.graph)[0], replay=both_reads(gprof))
+        out.update(graph_kernel_nodes=graph_kernel_nodes(graph.graph)[0], replay=both_reads(gprof))
     print(json.dumps(out), flush=True)
     return 0 if out["window"]["agree"] and out.get("replay", {}).get("agree", True) else 1
 

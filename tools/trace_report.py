@@ -168,7 +168,7 @@ def measure(cell_name: str, seed: int) -> dict:
     import harness
     import tracing
 
-    from pql_tpu_torch.envs.rigid import graph_kernel_nodes
+    from pql_tpu_torch.ops.graphs import graph_kernel_nodes
     from pql_tpu_torch.utils import trace
 
     trace.reset()
@@ -216,7 +216,7 @@ def measure(cell_name: str, seed: int) -> dict:
         line.update(learner_graph_kernels_per_iter=counter_per_iter(rows, "learner.graph_kernels"),
                     clip_adamw_steps_per_iter=counter_per_iter(rows, "learner.clip_adamw_steps"),
                     learner_graph_kernel_nodes={k: g.kernels for k, g in phases.items()},
-                    learner_capture_s={k: g.capture_s for k, g in phases.items()})
+                    learner_capture_s={k: g.build_s["capture"] for k, g in phases.items()})
     fused = counter_per_iter(rows, "env.fused_steps")
     if fused is not None:
         line["fused_steps_per_iter"] = fused
